@@ -1,0 +1,209 @@
+"""Software USIG implementations (the reference's SGX-SIM-mode analogue).
+
+Port of :mod:`minbft_tpu.usig.software`; the certificates are the same
+bytes.  Instances can resume a carried-over key, epoch and counter.
+
+Both schemes certify ``SHA256(digest32 || epoch_be8 || counter_be8)`` —
+the same packed layout idea as the enclave's signed struct (reference
+usig/sgx/enclave/usig.c:36-76, which signs {digest, epoch, counter}) — and
+uphold increment-after-sign and per-instance random epochs.
+
+Thread-safety: ``create_ui`` takes a lock, mirroring the reference's
+``ecallLock`` around the single-threaded enclave (reference
+usig/sgx/usig-enclave.go:105-114).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import hmac as hmac_mod
+import secrets
+import threading
+from typing import Callable, Optional, Tuple
+
+from ..utils import hostcrypto as hc
+from .usig import UI, USIG, UsigError
+
+_EPOCH_LEN = 8
+
+
+def _signed_payload(digest: bytes, epoch: bytes, counter: int) -> bytes:
+    return hashlib.sha256(
+        digest + epoch + counter.to_bytes(8, "big")
+    ).digest()
+
+
+class _BaseUSIG(USIG):
+    def __init__(self, epoch: Optional[bytes] = None, counter: int = 1):
+        self._epoch = epoch if epoch is not None else secrets.token_bytes(_EPOCH_LEN)
+        # Counters start at 1 (reference usig.c:181); ``counter`` resumes
+        # an instance whose key, epoch and next counter were carried over.
+        if counter < 1:
+            raise ValueError("USIG counters start at 1")
+        self._counter = counter
+        self._lock = threading.Lock()
+
+    @property
+    def epoch(self) -> bytes:
+        return self._epoch
+
+    def create_ui(self, message: bytes) -> UI:
+        digest = hashlib.sha256(message).digest()
+        with self._lock:
+            counter = self._counter
+            cert = self._epoch + self._certify(
+                _signed_payload(digest, self._epoch, counter)
+            )
+            # Increment only after the certificate exists, so this counter
+            # value can never be issued again (reference usig.c:66-69).
+            self._counter = counter + 1
+        return UI(counter=counter, cert=cert)
+
+    def verify_ui(self, message: bytes, ui: UI, usig_id: bytes) -> None:
+        if ui.counter == 0:
+            raise UsigError("zero counter")  # reference core/usig-ui.go:65-67
+        if len(ui.cert) < _EPOCH_LEN:
+            raise UsigError("certificate too short")
+        cert_epoch, sig = ui.cert[:_EPOCH_LEN], ui.cert[_EPOCH_LEN:]
+        id_epoch, key_material = usig_id[:_EPOCH_LEN], usig_id[_EPOCH_LEN:]
+        if cert_epoch != id_epoch:
+            raise UsigError("epoch mismatch")  # reference sgx-usig.go:86-90
+        digest = hashlib.sha256(message).digest()
+        payload = _signed_payload(digest, cert_epoch, ui.counter)
+        if not self._verify(key_material, payload, sig):
+            raise UsigError("invalid UI certificate")
+
+    # -- scheme hooks -------------------------------------------------------
+
+    def _certify(self, payload: bytes) -> bytes:
+        raise NotImplementedError
+
+    def _verify(self, key_material: bytes, payload: bytes, sig: bytes) -> bool:
+        raise NotImplementedError
+
+
+class HmacUSIG(_BaseUSIG):
+    """SGX-less symmetric USIG (BASELINE config[0]).
+
+    A cluster-shared 32-byte MAC key stands in for hardware trust: any
+    holder can verify (and forge!) certificates, so this is a SIM/test
+    scheme, exactly like running the reference enclave in SGX SIM mode.
+    ID = epoch || SHA256(key) (fingerprint only — never the key itself).
+    """
+
+    SCHEME = "hmac-sha256"
+
+    def __init__(
+        self, key: bytes, epoch: Optional[bytes] = None, counter: int = 1
+    ):
+        super().__init__(epoch, counter)
+        if len(key) != 32:
+            raise ValueError("HmacUSIG key must be 32 bytes")
+        self._key = key
+
+    def id(self) -> bytes:
+        return self._epoch + hashlib.sha256(self._key).digest()
+
+    def _certify(self, payload: bytes) -> bytes:
+        return hmac_mod.new(self._key, payload, hashlib.sha256).digest()
+
+    def _verify(self, key_material: bytes, payload: bytes, sig: bytes) -> bool:
+        # key_material is the fingerprint; verification requires holding the
+        # same shared key.
+        if key_material != hashlib.sha256(self._key).digest():
+            return False
+        expect = hmac_mod.new(self._key, payload, hashlib.sha256).digest()
+        return hmac_mod.compare_digest(expect, sig)
+
+
+class EcdsaUSIG(_BaseUSIG):
+    """ECDSA-P256 USIG — the reference enclave's scheme
+    (reference usig/sgx/enclave/usig.c:36-76, sgx-usig.go:81-97).
+
+    Cert = epoch || r(32) || s(32); ID = epoch || x(32) || y(32).
+    Public verification — batchable on the GPU via
+    :func:`minbft_tpu_torch.ops.p256.ecdsa_verify_kernel_packed` (the
+    authenticator routes verification through the batching engine instead
+    of calling :meth:`verify_ui` serially).
+    """
+
+    SCHEME = "ecdsa-p256"
+
+    def __init__(
+        self,
+        private_key: Optional[int] = None,
+        epoch: Optional[bytes] = None,
+        sign_fn: Optional[Callable[[bytes], Tuple[int, int]]] = None,
+        counter: int = 1,
+    ):
+        super().__init__(epoch, counter)
+        if private_key is None:
+            private_key, public = hc.keygen()
+        else:
+            public = hc.scalar_mult(private_key, (hc.GX, hc.GY))
+        self._d = private_key
+        self._q = public
+        self._sign_fn = sign_fn  # native-module override hook
+
+    @property
+    def public_key(self) -> Tuple[int, int]:
+        return self._q
+
+    def id(self) -> bytes:
+        x, y = self._q
+        return self._epoch + x.to_bytes(32, "big") + y.to_bytes(32, "big")
+
+    def _certify(self, payload: bytes) -> bytes:
+        if self._sign_fn is not None:
+            r, s = self._sign_fn(payload)
+        else:
+            r, s = hc.ecdsa_sign(self._d, payload)
+        return r.to_bytes(32, "big") + s.to_bytes(32, "big")
+
+    def _verify(self, key_material: bytes, payload: bytes, sig: bytes) -> bool:
+        if len(key_material) != 64 or len(sig) != 64:
+            return False
+        q = (
+            int.from_bytes(key_material[:32], "big"),
+            int.from_bytes(key_material[32:], "big"),
+        )
+        r = int.from_bytes(sig[:32], "big")
+        s = int.from_bytes(sig[32:], "big")
+        return hc.ecdsa_verify(q, payload, (r, s))
+
+
+def parse_usig_id(usig_id: bytes) -> Tuple[bytes, bytes]:
+    """Split a USIG ID into (epoch, key material)."""
+    if len(usig_id) < _EPOCH_LEN:
+        raise UsigError("USIG ID too short")
+    return usig_id[:_EPOCH_LEN], usig_id[_EPOCH_LEN:]
+
+
+def usig_verify_items(
+    message: bytes, ui: UI, usig_id: bytes
+) -> Tuple[Tuple[int, int], bytes, Tuple[int, int]]:
+    """Decompose an ECDSA UI verification into the (pubkey, digest, sig)
+    triple consumed by the batch verifier
+    (:func:`minbft_tpu_torch.ops.p256.prepare_batch`).
+
+    Raises :class:`UsigError` for structurally invalid inputs (those the
+    batch path must reject before building the fixed-shape batch).
+    """
+    if ui.counter == 0:
+        raise UsigError("zero counter")
+    if len(ui.cert) != _EPOCH_LEN + 64:
+        # Exact length: padding or trailing bytes would otherwise verify on
+        # the batch path but be rejected by the serial verifier
+        # (certificate-encoding malleability).
+        raise UsigError("malformed certificate")
+    cert_epoch, sig = ui.cert[:_EPOCH_LEN], ui.cert[_EPOCH_LEN:]
+    id_epoch, key_material = parse_usig_id(usig_id)
+    if cert_epoch != id_epoch or len(key_material) != 64:
+        raise UsigError("epoch mismatch")
+    digest = hashlib.sha256(message).digest()
+    payload = _signed_payload(digest, cert_epoch, ui.counter)
+    q = (
+        int.from_bytes(key_material[:32], "big"),
+        int.from_bytes(key_material[32:], "big"),
+    )
+    return q, payload, (int.from_bytes(sig[:32], "big"), int.from_bytes(sig[32:], "big"))

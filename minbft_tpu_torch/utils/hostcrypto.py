@@ -1,0 +1,478 @@
+"""Host-side elliptic-curve crypto.
+
+P-256 and Ed25519: key generation, signing (RFC 6979 deterministic nonces
+for ECDSA), and a reference verifier.  Three jobs:
+
+1. **Signing** — replicas/clients sign with host code (one signature per
+   outgoing message; generation is inherently serial per-key because the
+   USIG counter must increment atomically, reference usig/sgx/enclave/
+   usig.c:66-69).
+2. **Differential testing** — the TPU kernels (:mod:`minbft_tpu.ops.p256`,
+   :mod:`minbft_tpu.ops.ed25519`) are tested bit-for-bit against the
+   pure-Python functions here on random and adversarial inputs.
+3. **Key generation** for the keystore/keytool (reference
+   sample/authentication/keymanager.go:404-450).
+
+Two tiers:
+
+- A **pure-Python big-int implementation** (always available, standard
+  library only) — the semantic reference the TPU kernels are diff-tested
+  against, and the fallback everywhere else.
+- An **OpenSSL-backed fast path** through the ``cryptography`` package for
+  the hot host-side operations (sign/verify/public-key derivation), ~500x
+  the pure-Python speed.  ECDSA signing via OpenSSL uses random nonces
+  rather than RFC 6979 — both are valid ECDSA; use ``ecdsa_sign_py`` where
+  deterministic output matters.  Ed25519 verification is **strict
+  cofactorless** on every backend — sB == R + kA (the RFC 8032 §5.1.7
+  group equation without the 8× multiplication), which is what OpenSSL
+  implements, what the pure-Python oracle implements, and what the batch
+  kernel (:mod:`minbft_tpu.ops.ed25519`) mirrors bit-for-bit (see the
+  semantics note above ``ed25519_verify_py``).  The agreement matters for
+  BFT: a cofactored verifier disagrees with a strict one on adversarial
+  small-order inputs, and mixed acceptance semantics across replicas
+  would let one crafted signature split the cluster.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import hmac
+import secrets
+from typing import Tuple
+
+try:  # OpenSSL fast path (baked into the image via `cryptography`)
+    from cryptography.exceptions import InvalidSignature as _InvalidSignature
+    from cryptography.hazmat.primitives import hashes as _ossl_hashes
+    from cryptography.hazmat.primitives.asymmetric import ec as _ossl_ec
+    from cryptography.hazmat.primitives.asymmetric import ed25519 as _ossl_ed
+    from cryptography.hazmat.primitives.asymmetric.utils import (
+        Prehashed as _Prehashed,
+    )
+    from cryptography.hazmat.primitives.asymmetric.utils import (
+        decode_dss_signature as _decode_dss,
+    )
+    from cryptography.hazmat.primitives.asymmetric.utils import (
+        encode_dss_signature as _encode_dss,
+    )
+
+    _HAVE_OSSL = True
+except Exception:  # pragma: no cover - image always has cryptography
+    _HAVE_OSSL = False
+
+# ---------------------------------------------------------------------------
+# NIST P-256.
+
+P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
+N = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
+A = P - 3
+B = 0x5AC635D8AA3A93E7B3EBBD55769886BC651D06B0CC53B0F63BCE3C3E27D2604B
+GX = 0x6B17D1F2E12C4247F8BCE6E563A440F277037D812DEB33A0F4A13945D898C296
+GY = 0x4FE342E2FE1A7F9B8EE7EB4A7C0F9E162BCE33576B315ECECBB6406837BF51F5
+
+# Affine points as (x, y); None is the identity.
+PointA = Tuple[int, int]
+
+
+def _inv(x: int, m: int) -> int:
+    # noqa: AH104 - deliberate host-crypto fallback; the hot path batches off-loop
+    return pow(x, -1, m)
+
+
+def point_add(p, q):
+    if p is None:
+        return q
+    if q is None:
+        return p
+    x1, y1 = p
+    x2, y2 = q
+    if x1 == x2:
+        if (y1 + y2) % P == 0:
+            return None
+        return point_double(p)
+    lam = ((y2 - y1) * _inv(x2 - x1, P)) % P
+    x3 = (lam * lam - x1 - x2) % P
+    return x3, (lam * (x1 - x3) - y1) % P
+
+
+def point_double(p):
+    if p is None:
+        return None
+    x1, y1 = p
+    if y1 == 0:
+        return None
+    lam = ((3 * x1 * x1 + A) * _inv(2 * y1, P)) % P
+    x3 = (lam * lam - 2 * x1) % P
+    return x3, (lam * (x1 - x3) - y1) % P
+
+
+def scalar_mult(k: int, p: PointA):
+    """Double-and-add (host side is not secret-latency sensitive for tests;
+    production signing uses the native module)."""
+    acc = None
+    addend = p
+    while k:
+        if k & 1:
+            acc = point_add(acc, addend)
+        addend = point_double(addend)
+        k >>= 1
+    return acc
+
+
+if _HAVE_OSSL:
+    _OSSL_CURVE = _ossl_ec.SECP256R1()
+    _OSSL_SHA256 = _ossl_ec.ECDSA(_Prehashed(_ossl_hashes.SHA256()))
+
+    @functools.lru_cache(maxsize=4096)
+    def _ossl_priv(d: int):
+        return _ossl_ec.derive_private_key(d, _OSSL_CURVE)
+
+    @functools.lru_cache(maxsize=4096)
+    def _ossl_pub(x: int, y: int):
+        return _ossl_ec.EllipticCurvePublicNumbers(x, y, _OSSL_CURVE).public_key()
+
+
+def keygen(rng=None) -> Tuple[int, PointA]:
+    """-> (private scalar d, public point Q = d*G)."""
+    d = (rng or secrets).randbelow(N - 1) + 1
+    if _HAVE_OSSL:
+        nums = _ossl_priv(d).public_key().public_numbers()
+        return d, (nums.x, nums.y)
+    return d, scalar_mult(d, (GX, GY))
+
+
+def _rfc6979_k(d: int, z: int, order: int = N) -> int:
+    """RFC 6979 deterministic nonce (HMAC-SHA256 DRBG)."""
+    qlen = 32
+    x = d.to_bytes(qlen, "big")
+    h1 = (z % order).to_bytes(qlen, "big")
+    v = b"\x01" * 32
+    k = b"\x00" * 32
+    k = hmac.new(k, v + b"\x00" + x + h1, hashlib.sha256).digest()
+    v = hmac.new(k, v, hashlib.sha256).digest()
+    k = hmac.new(k, v + b"\x01" + x + h1, hashlib.sha256).digest()
+    v = hmac.new(k, v, hashlib.sha256).digest()
+    while True:
+        v = hmac.new(k, v, hashlib.sha256).digest()
+        cand = int.from_bytes(v, "big")
+        if 1 <= cand < order:
+            return cand
+        k = hmac.new(k, v + b"\x00", hashlib.sha256).digest()
+        v = hmac.new(k, v, hashlib.sha256).digest()
+
+
+def ecdsa_sign_py(d: int, digest: bytes) -> Tuple[int, int]:
+    """Pure-Python ECDSA-P256 over a 32-byte digest -> (r, s).
+    Deterministic (RFC 6979)."""
+    z = int.from_bytes(digest[:32], "big") % N
+    while True:
+        k = _rfc6979_k(d, z)
+        x1, _ = scalar_mult(k, (GX, GY))
+        r = x1 % N
+        if r == 0:
+            z = (z + 1) % N  # astronomically unlikely; reroll deterministically
+            continue
+        s = (_inv(k, N) * (z + r * d)) % N
+        if s == 0:
+            z = (z + 1) % N
+            continue
+        return r, s
+
+
+def ecdsa_sign(d: int, digest: bytes) -> Tuple[int, int]:
+    """ECDSA-P256 over a 32-byte digest -> (r, s).  OpenSSL when available
+    (random nonce), pure Python otherwise (RFC 6979)."""
+    if _HAVE_OSSL:
+        der = _ossl_priv(d).sign(digest[:32], _OSSL_SHA256)
+        return _decode_dss(der)
+    return ecdsa_sign_py(d, digest)
+
+
+def ecdsa_verify_py(q: PointA, digest: bytes, sig: Tuple[int, int]) -> bool:
+    """Pure-Python reference verifier — the oracle for the TPU kernel."""
+    r, s = sig
+    if not (0 < r < N and 0 < s < N):
+        return False
+    z = int.from_bytes(digest[:32], "big") % N
+    w = _inv(s, N)
+    u1 = (z * w) % N
+    u2 = (r * w) % N
+    pt = point_add(scalar_mult(u1, (GX, GY)), scalar_mult(u2, q))
+    if pt is None:
+        return False
+    return pt[0] % N == r
+
+
+def ecdsa_verify(q: PointA, digest: bytes, sig: Tuple[int, int]) -> bool:
+    """ECDSA-P256 verify.  OpenSSL when available, pure Python otherwise
+    (identical accept/reject behavior for on-curve keys; OpenSSL
+    additionally rejects off-curve public keys at load)."""
+    r, s = sig
+    if not (0 < r < N and 0 < s < N):
+        return False
+    if _HAVE_OSSL:
+        try:
+            pub = _ossl_pub(*q)
+        except ValueError:
+            return False  # off-curve / out-of-range public key
+        try:
+            pub.verify(_encode_dss(r, s), digest[:32], _OSSL_SHA256)
+            return True
+        except _InvalidSignature:
+            return False
+    return ecdsa_verify_py(q, digest, sig)
+
+
+# ---------------------------------------------------------------------------
+# Wider NIST curves — host path only.  The reference's ECDSA keyspec
+# accepts DER keys for P-224 through P-521 (reference
+# sample/authentication/keymanager.go:169-241); this build serves P-384 and
+# P-521 through OpenSSL with raw fixed-width encodings.  The TPU kernels
+# stay P-256-only (the hot path); these curves never touch the device.
+
+_NIST_CURVES: dict = {}
+if _HAVE_OSSL:
+    _NIST_CURVES = {
+        "p384": (_ossl_ec.SECP384R1(), _ossl_hashes.SHA384(), 48),
+        "p521": (_ossl_ec.SECP521R1(), _ossl_hashes.SHA512(), 66),
+    }
+
+
+def _nist_params(curve: str):
+    params = _NIST_CURVES.get(curve)
+    if params is None:
+        raise ValueError(
+            f"unsupported NIST curve {curve!r}"
+            + ("" if _HAVE_OSSL else " (cryptography/OpenSSL unavailable)")
+        )
+    return params
+
+
+def nist_scalar_bytes(curve: str) -> int:
+    """Fixed scalar/coordinate width in bytes for ``curve``."""
+    return _nist_params(curve)[2]
+
+
+def nist_keygen(curve: str) -> Tuple[bytes, bytes]:
+    """-> (private scalar bytes, public x||y bytes), fixed width."""
+    c, _, nb = _nist_params(curve)
+    nums = _ossl_ec.generate_private_key(c).private_numbers()
+    pub = nums.public_numbers
+    return (
+        nums.private_value.to_bytes(nb, "big"),
+        pub.x.to_bytes(nb, "big") + pub.y.to_bytes(nb, "big"),
+    )
+
+
+def nist_sign(curve: str, priv: bytes, msg: bytes) -> bytes:
+    """ECDSA over the curve's matched hash -> raw r||s (fixed width)."""
+    c, h, nb = _nist_params(curve)
+    key = _ossl_ec.derive_private_key(int.from_bytes(priv, "big"), c)
+    r, s = _decode_dss(key.sign(msg, _ossl_ec.ECDSA(h)))
+    return r.to_bytes(nb, "big") + s.to_bytes(nb, "big")
+
+
+def nist_verify(curve: str, pub: bytes, msg: bytes, sig: bytes) -> bool:
+    c, h, nb = _nist_params(curve)
+    if len(sig) != 2 * nb or len(pub) != 2 * nb:
+        return False
+    try:
+        key = _ossl_ec.EllipticCurvePublicNumbers(
+            int.from_bytes(pub[:nb], "big"),
+            int.from_bytes(pub[nb:], "big"),
+            c,
+        ).public_key()
+    except ValueError:
+        return False  # off-curve / out-of-range public key
+    r = int.from_bytes(sig[:nb], "big")
+    s = int.from_bytes(sig[nb:], "big")
+    try:
+        key.verify(_encode_dss(r, s), msg, _ossl_ec.ECDSA(h))
+        return True
+    except _InvalidSignature:
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Ed25519 (RFC 8032). Used by the Ed25519 authenticator (BASELINE config[4]).
+
+ED_P = 2**255 - 19
+ED_L = 2**252 + 27742317777372353535851937790883648493
+ED_D = (-121665 * pow(121666, -1, ED_P)) % ED_P
+ED_BY = (4 * pow(5, -1, ED_P)) % ED_P
+
+
+def _ed_recover_x(y: int, sign: int):
+    xx = (y * y - 1) * pow(ED_D * y * y + 1, -1, ED_P) % ED_P
+    x = pow(xx, (ED_P + 3) // 8, ED_P)
+    if (x * x - xx) % ED_P != 0:
+        x = x * pow(2, (ED_P - 1) // 4, ED_P) % ED_P
+    if (x * x - xx) % ED_P != 0:
+        return None
+    if x == 0 and sign == 1:
+        # RFC 8032 §5.1.3 step 4: x = 0 with the sign bit set is a
+        # non-canonical encoding and must be rejected.
+        return None
+    if x & 1 != sign:
+        x = ED_P - x
+    return x
+
+
+ED_BX = _ed_recover_x(ED_BY, 0)
+
+# Extended coordinates (X, Y, Z, T) with x = X/Z, y = Y/Z, T = XY/Z.
+EdPoint = Tuple[int, int, int, int]
+ED_IDENT: EdPoint = (0, 1, 1, 0)
+ED_BASE: EdPoint = (ED_BX, ED_BY, 1, ED_BX * ED_BY % ED_P)
+
+
+def ed_add(p: EdPoint, q: EdPoint) -> EdPoint:
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    a = (y1 - x1) * (y2 - x2) % ED_P
+    b = (y1 + x1) * (y2 + x2) % ED_P
+    c = 2 * t1 * t2 * ED_D % ED_P
+    d = 2 * z1 * z2 % ED_P
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return e * f % ED_P, g * h % ED_P, f * g % ED_P, e * h % ED_P
+
+
+def ed_scalar_mult(k: int, p: EdPoint) -> EdPoint:
+    acc = ED_IDENT
+    while k:
+        if k & 1:
+            acc = ed_add(acc, p)
+        p = ed_add(p, p)
+        k >>= 1
+    return acc
+
+
+def ed_compress(p: EdPoint) -> bytes:
+    x, y, z, _ = p
+    # noqa: AH104 - host-crypto fallback; keygen runs once at test-net setup
+    zi = pow(z, -1, ED_P)
+    x, y = x * zi % ED_P, y * zi % ED_P
+    return (y | ((x & 1) << 255)).to_bytes(32, "little")
+
+
+def ed_decompress(data: bytes):
+    if len(data) != 32:
+        return None
+    y = int.from_bytes(data, "little")
+    sign = y >> 255
+    y &= (1 << 255) - 1
+    if y >= ED_P:
+        return None
+    x = _ed_recover_x(y, sign)
+    if x is None:
+        return None
+    return (x, y, 1, x * y % ED_P)
+
+
+if _HAVE_OSSL:
+
+    @functools.lru_cache(maxsize=4096)
+    def _ossl_ed_priv(seed: bytes):
+        return _ossl_ed.Ed25519PrivateKey.from_private_bytes(seed)
+
+
+def ed25519_keygen(seed: bytes | None = None) -> Tuple[bytes, bytes]:
+    """-> (seed32, public key 32B compressed)."""
+    seed = seed if seed is not None else secrets.token_bytes(32)
+    if _HAVE_OSSL:
+        from cryptography.hazmat.primitives.serialization import (
+            Encoding,
+            PublicFormat,
+        )
+
+        pub = _ossl_ed_priv(seed).public_key().public_bytes(
+            Encoding.Raw, PublicFormat.Raw
+        )
+        return seed, pub
+    h = hashlib.sha512(seed).digest()
+    a = int.from_bytes(h[:32], "little")
+    a &= (1 << 254) - 8
+    a |= 1 << 254
+    return seed, ed_compress(ed_scalar_mult(a, ED_BASE))
+
+
+def ed25519_sign_py(seed: bytes, msg: bytes) -> bytes:
+    h = hashlib.sha512(seed).digest()
+    a = int.from_bytes(h[:32], "little")
+    a &= (1 << 254) - 8
+    a |= 1 << 254
+    pub = ed_compress(ed_scalar_mult(a, ED_BASE))
+    r = int.from_bytes(hashlib.sha512(h[32:] + msg).digest(), "little") % ED_L
+    rp = ed_compress(ed_scalar_mult(r, ED_BASE))
+    k = int.from_bytes(hashlib.sha512(rp + pub + msg).digest(), "little") % ED_L
+    s = (r + k * a) % ED_L
+    return rp + s.to_bytes(32, "little")
+
+
+def ed25519_sign(seed: bytes, msg: bytes) -> bytes:
+    """RFC 8032 Ed25519 signing (deterministic — OpenSSL and the pure
+    implementation produce identical signatures)."""
+    if _HAVE_OSSL:
+        return _ossl_ed_priv(seed).sign(msg)
+    return ed25519_sign_py(seed, msg)
+
+
+# Verification semantics: **cofactorless, strict** — sB == R + kA checked
+# as compress(sB - kA) == R-bytes.  This is what OpenSSL implements, and
+# the byte comparison enforces canonical encodings for free.  Honest
+# signatures verify identically under the cofactored RFC 8032 equation;
+# the variants differ only on crafted mixed-order inputs, where strict is
+# the *more* conservative choice.  Every verifier in this build — OpenSSL,
+# the pure-Python fallback below, and the TPU kernel
+# (minbft_tpu/ops/ed25519.py) — agrees on this semantics, which matters
+# for BFT: replicas must not split on a crafted signature's validity.
+# The strict form is also what makes the TPU path fast: the device
+# compares its computed point against the signature's R *bytes*, so the
+# host never decompresses R (a per-signature big-int sqrt that dominated
+# the n=31 benchmark).
+
+ed_decompress_cached = functools.lru_cache(maxsize=4096)(ed_decompress)
+
+
+def ed25519_verify_py(pub: bytes, msg: bytes, sig: bytes) -> bool:
+    """Pure-Python strict verifier (differential reference for the kernel)."""
+    if len(sig) != 64:
+        return False
+    ap = ed_decompress_cached(pub)
+    if ap is None:
+        return False
+    s = int.from_bytes(sig[32:], "little")
+    if s >= ED_L:
+        return False
+    k = int.from_bytes(hashlib.sha512(sig[:32] + pub + msg).digest(), "little") % ED_L
+    x, y, z, t = ap
+    neg_a = (ED_P - x if x else 0, y, z, (ED_P - t) % ED_P)
+    res = ed_add(ed_scalar_mult(s, ED_BASE), ed_scalar_mult(k, neg_a))
+    return ed_compress(res) == sig[:32]
+
+
+if _HAVE_OSSL:
+
+    @functools.lru_cache(maxsize=4096)
+    def _ossl_ed_pub(pub: bytes):
+        return _ossl_ed.Ed25519PublicKey.from_public_bytes(pub)
+
+
+def ed25519_verify(pub: bytes, msg: bytes, sig: bytes) -> bool:
+    """Ed25519 verification (strict cofactorless — see the semantics note
+    above).
+
+    The public key is gated through ``ed_decompress`` on every path:
+    OpenSSL accepts some non-canonical key encodings (e.g. y >= p) that
+    the pure-Python and TPU verifiers reject — without this gate a
+    Byzantine principal could register such a key and split replicas by
+    which verifier backend they run."""
+    if ed_decompress_cached(pub) is None:
+        return False
+    if _HAVE_OSSL:
+        try:
+            _ossl_ed_pub(pub).verify(sig, msg)
+            return True
+        except Exception:
+            return False
+    return ed25519_verify_py(pub, msg, sig)
