@@ -38,14 +38,17 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_ext")
 
-# One shared library per kernel source (each includes field.cuh), with
-# the C signature of its launch function: every pointer and the stream
-# as c_void_p, counts as c_int, an int return (cudaGetLastError()).
+# One shared library per kernel source (the P-256 ones include
+# field.cuh, the SHA-256 ones sha256.cuh), with the C signature of its
+# launch function: every pointer and the stream as c_void_p, counts as
+# c_int, an int return (cudaGetLastError()).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LAUNCHERS = {
     "field_op": ("mbt_field_op", [_I, _I, _P, _P, _P, _I, _P]),
     "p256_verify": ("mbt_p256_verify", [_P, _P, _I, _P]),
     "p256_kg": ("mbt_p256_kg", [_P, _P, _P, _I, _P]),
+    "sha256_compress": ("mbt_sha256_compress", [_P, _P, _P, _I, _P]),
+    "hmac_sha256": ("mbt_hmac_sha256_verify", [_P, _P, _I, _P]),
 }
 SOURCES = tuple(LAUNCHERS)
 

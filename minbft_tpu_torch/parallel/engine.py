@@ -13,7 +13,8 @@ kernels).  The queue machinery is the reference's, unchanged:
 4. a worker thread (``asyncio.to_thread``, at most ``max_inflight`` per
    scheme) packs it into a recycled pinned staging tensor, copies it to
    the device and launches the kernel on PyTorch's current stream (K2
-   for verification, K3 for signing), then resolves every awaiting future
+   for ECDSA verification, K6 for HMAC-SHA256 verification, K3 for
+   signing), then resolves every awaiting future
    with its lane's result.
 
 The flush policy, the bucket ladder, the dedup memo and the stats are
@@ -23,8 +24,8 @@ the awaiting futures as exceptions.  (The reference re-runs a hung batch
 on the host and writes the device off; the port keeps only the timeout,
 so a hung card fails loudly instead of turning into host throughput.)
 
-This slice carries the ECDSA-P256 verify and sign queues.  The
-HMAC-SHA256 and Ed25519 queues come with their kernels.
+This slice carries the ECDSA-P256 verify and sign queues and the
+HMAC-SHA256 verify queue.  The Ed25519 queues come with their kernels.
 """
 
 from __future__ import annotations
@@ -485,7 +486,8 @@ class BatchVerifier:
     """The GPU-backed batch verification and signing engine.
 
     Schemes of this slice: ``ecdsa_p256`` (verify items:
-    ((qx, qy), digest32, (r, s)); sign items: (d, digest32)).
+    ((qx, qy), digest32, (r, s)); sign items: (d, digest32)) and
+    ``hmac_sha256`` (verify items: (key32, msg32, mac32)).
 
     ``device``: ``None`` is ``cuda:0``; ``"cpu"`` runs the plain PyTorch
     versions of the kernels; CUDA asked for and absent raises
@@ -653,6 +655,11 @@ class BatchVerifier:
         q = self._queue("ecdsa_p256", self._dispatch_ecdsa)
         return await q.submit((pubkey, digest, sig))
 
+    async def verify_hmac_sha256(self, key: bytes, msg32: bytes, mac: bytes) -> bool:
+        """HMAC-SHA256(key32, msg32) == mac32, one lane of K6."""
+        q = self._queue("hmac_sha256", self._dispatch_hmac)
+        return await q.submit((key, msg32, mac))
+
     async def _verify_many(self, name: str, dispatch, items) -> list:
         """Whole-bundle verification feed: every item lands in the queue
         before ONE flush decision.  Returns per-item verdicts in input
@@ -733,6 +740,33 @@ class BatchVerifier:
             with self._device_scope():
                 rows = staging.to(self.device, non_blocking=True)
                 out = p256.ecdsa_verify_kernel_packed(rows)
+                return out[:n].cpu().numpy()
+        finally:
+            self._staging.release(staging)
+
+    def _dispatch_hmac(self, items) -> np.ndarray:
+        from ..ops.hmac_sha256 import PACKED_COLS, hmac_verify_kernel_packed
+
+        n = len(items)
+        b = _bucket_for(n, self.buckets)
+        t0 = time.perf_counter()
+        # int32 staging carries the u32 words' bits (torch has no uint32
+        # arithmetic and the kernel takes a raw pointer); the numpy uint32
+        # view is written in place.
+        staging = self._staging.acquire((b, PACKED_COLS), torch.int32)
+        try:
+            words = staging.numpy().view(np.uint32)
+            # One bulk big-endian word view of the concatenated batch;
+            # padding lanes are all zero.
+            words[:n] = np.frombuffer(
+                b"".join([key + msg + mac for key, msg, mac in items]),
+                dtype=">u4",
+            ).reshape(n, PACKED_COLS)
+            words[n:] = 0
+            self._note_prep("hmac_sha256", b - n, time.perf_counter() - t0)
+            with self._device_scope():
+                rows = staging.to(self.device, non_blocking=True)
+                out = hmac_verify_kernel_packed(rows)
                 return out[:n].cpu().numpy()
         finally:
             self._staging.release(staging)

@@ -4,8 +4,9 @@ Port of :mod:`minbft_tpu.sample.authentication.authenticator` for the
 ``ecdsa-p256`` scheme.  Every ``verify`` call becomes an awaitable lane of
 the :class:`minbft_tpu_torch.parallel.BatchVerifier` (K2 on the card),
 and own CLIENT/REPLICA signatures go through the engine's sign queue (K3).
-The Ed25519 scheme, the wider NIST host curves, the keystore, keytool and
-MAC authenticator come with later slices.
+USIG certificates are checked in the engine too: ECDSA ones by K2,
+HMAC-SHA256 ones by K6.  The Ed25519 scheme, the wider NIST host curves,
+the keystore, keytool and MAC authenticator come with later slices.
 
 Scheme wire formats (canonical, byte-identical to the reference):
 
@@ -30,7 +31,13 @@ import numpy as np
 from ... import api
 from ...messages import UI
 from ...parallel import BatchVerifier
-from ...usig.software import EcdsaUSIG, HmacUSIG
+from ...usig.software import (
+    EcdsaUSIG,
+    HmacUSIG,
+    UsigError,
+    _signed_payload,
+    parse_usig_id,
+)
 from ...utils import hostcrypto as hc
 
 _EPOCH_LEN = 8
@@ -462,7 +469,7 @@ class SampleAuthenticator(api.Authenticator):
         usig_scheme = getattr(self._usig, "SCHEME", None)
         if self._engine is not None and usig_scheme == "ecdsa-p256":
             # Batched device verification of the UI certificate (K2).
-            from ...usig.software import UsigError, usig_verify_items
+            from ...usig.software import usig_verify_items
 
             try:
                 q, payload, sig = usig_verify_items(msg, ui, usig_id)
@@ -474,16 +481,32 @@ class SampleAuthenticator(api.Authenticator):
                 self._capture_usig_epoch(peer_id, usig_id[:_EPOCH_LEN])
             return
         if self._engine is not None and usig_scheme == "hmac-sha256":
-            raise NotImplementedError(
-                "HMAC-SHA256 USIG verification through the engine needs the "
-                "HMAC kernel, which is not ported yet: ROADMAP.md queue 1 "
-                "item 8"
-            )
+            # Batched device verification of the UI certificate (K6).
+
+            try:
+                epoch, fp = parse_usig_id(usig_id)
+            except UsigError as e:
+                raise api.AuthenticationError(str(e)) from e
+            # Mirror the serial HmacUSIG._verify checks exactly so batch and
+            # serial verification can never disagree: key-fingerprint match
+            # and an exact-length cert (no trailing bytes after the MAC).
+            if fp != hashlib.sha256(self._usig._key).digest():
+                raise api.AuthenticationError("USIG key fingerprint mismatch")
+            if len(ui.cert) != _EPOCH_LEN + 32 or ui.cert[:_EPOCH_LEN] != epoch:
+                raise api.AuthenticationError("epoch mismatch")
+            digest = hashlib.sha256(msg).digest()
+            payload = _signed_payload(digest, epoch, ui.counter)
+            mac = ui.cert[_EPOCH_LEN : _EPOCH_LEN + 32]
+            if not await self._engine.verify_hmac_sha256(
+                self._usig._key, payload, mac
+            ):
+                raise api.AuthenticationError("invalid UI certificate")
+            if tofu:
+                self._capture_usig_epoch(peer_id, epoch)
+            return
         # Serial host verification (no engine).
         if self._usig is None:
             raise api.AuthenticationError("no USIG to verify with")
-        from ...usig import UsigError
-
         try:
             self._usig.verify_ui(msg, ui, usig_id)
         except UsigError as e:

@@ -29,6 +29,7 @@ from minbft_tpu.sample.authentication.authenticator import (
     SampleAuthenticator as RefAuthenticator,
 )
 from minbft_tpu.usig.software import EcdsaUSIG as RefEcdsaUSIG
+from minbft_tpu.usig.software import HmacUSIG as RefHmacUSIG
 from minbft_tpu_torch import api
 from minbft_tpu_torch import messages as port_msgs
 from minbft_tpu_torch.parallel import BatchVerifier
@@ -83,13 +84,18 @@ def test_codec_and_authen_bytes_are_byte_identical(kind):
 
 def _reference_authenticators(keys):
     """The reference's replica and client authenticators (host
-    verification, no engine) under the key dict ``keys``."""
+    verification, no engine) under the key dict ``keys``, with ECDSA or
+    HMAC USIGs (``keys["usig_kind"]``) carrying the same key, epoch and
+    counter as the port's."""
     n = keys["n"]
     replica_pubs = {i: pub_from_row(r) for i, r in enumerate(keys["replica_pub"])}
     client_pubs = {i: pub_from_row(r) for i, r in enumerate(keys["client_pub"])}
     usigs = []
     for i in range(n):
-        u = RefEcdsaUSIG(keys["usig_priv"][i], epoch=keys["usig_epoch"][i])
+        if keys["usig_kind"] == "ecdsa":
+            u = RefEcdsaUSIG(keys["usig_priv"][i], epoch=keys["usig_epoch"][i])
+        else:
+            u = RefHmacUSIG(keys["usig_key"], epoch=keys["usig_epoch"][i])
         u._counter = keys["usig_counter"][i]
         usigs.append(u)
     usig_ids = {i: u.id() for i, u in enumerate(usigs)}
@@ -252,19 +258,25 @@ def test_new_test_authenticators_host_path_and_unported_schemes():
         )
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         new_test_authenticators(4, scheme="ed25519")
-    # An HMAC USIG through an engine needs the HMAC kernel: it raises
-    # rather than taking the host path.
+    # An HMAC USIG through an engine: its UI certificates are checked by
+    # the engine's HMAC queue (the plain K6 here), not on the host.
     engine = BatchVerifier(device="cpu")
     hmac_replicas, _ = new_test_authenticators(2, usig_kind="hmac", engine=engine)
     ui = hmac_replicas[0].generate_message_authen_tag(USIG, ab)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        asyncio.run(hmac_replicas[1].verify_message_authen_tag(USIG, 0, ab, ui))
+    asyncio.run(hmac_replicas[1].verify_message_authen_tag(USIG, 0, ab, ui))
+    with pytest.raises(api.AuthenticationError, match="invalid UI certificate"):
+        asyncio.run(hmac_replicas[1].verify_message_authen_tag(USIG, 0, ab, _tampered(ui)))
+    st = engine.stats["hmac_sha256"]
+    assert (st.items, st.batches) == (2, 2)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "import minbft_tpu_torch as pkg\n"
+        "import minbft_tpu_torch.core, minbft_tpu_torch.client\n"
+        "import minbft_tpu_torch.sample.conn.inprocess, minbft_tpu_torch.sample.config\n"
+        "import minbft_tpu_torch.ops.hmac_sha256\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'minbft_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
