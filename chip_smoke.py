@@ -10,8 +10,8 @@ that does not hold:
 1. the card's name and power limit (``nvidia-smi``), the build time and
    ``torch.version.cuda``;
 2. K1 (field library, ``field_op`` test kernel) against the plain
-   PyTorch field ops, every op, mod p and mod n, 4,096 random and edge
-   elements, exact;
+   PyTorch field ops, every op, mod the P-256 prime p, its order n and
+   the Ed25519 prime 2^255 - 19, 4,096 random and edge elements, exact;
 3. K2 (batched ECDSA-P256 verify) at B = 512 and 16,384, each batch of
    distinct rows signed afresh on the card, against the plain version on
    every lane and against ``hostcrypto.ecdsa_verify_py`` on every honest
@@ -31,21 +31,33 @@ that does not hold:
    plain version and Python's ``hmac`` on every lane, with forged lanes
    (one flipped bit in the mac, the key or the message) and all-zero
    padding rows;
-7. cluster A, the main path: an in-process MinBFT cluster (replica core,
+7. K7 (batched Ed25519 verify) at B = 1,024 and 16,384 distinct rows,
+   honest lanes signed on the card, with adversarial lanes (tampered
+   message, wrong key, bit-flipped R, S + L, non-canonical R with
+   y >= p, undecodable public key, wrong-length signature) and all-zero
+   padding rows, against the plain version on every lane and against
+   ``hostcrypto.ed25519_verify_py`` on a sample; K8 (fixed-base r·B) at
+   B = 1,024 and 16,384, r = 0, 1 and L - 1 among the nonces, against
+   the plain version bit for bit, and ``sign_batch`` signatures against
+   ``hostcrypto.ed25519_sign``;
+8. cluster A, the main path: an in-process MinBFT cluster (replica core,
    client, in-process transport) at n = 7, f = 3 with ECDSA-P256 client
    and replica signatures and ECDSA USIGs, one engine shared by the
    replicas and the clients, 100 clients pipelining 24 requests each,
    10,000 requests;
-8. cluster B: the same layout at n = 4, f = 1 with HMAC-SHA256 USIGs
+9. cluster B: the same layout at n = 4, f = 1 with HMAC-SHA256 USIGs
    (their certificates checked by K6), 50 clients, 4,000 requests, plus
    8 REQUESTs with a flipped signature bit injected over a client stream;
-   in both cluster phases every request must return, every replica's
-   ledger must hold exactly the honest requests with equal state digests,
-   every queue must be free of dispatch timeouts, no ERROR record may come
-   from the core or the client, and the launch counters, zeroed just
-   before the timed drive and read just after, must show the path's
-   kernels;
-9. one JSON line of per-kernel numbers (launches, parity, times, bounds).
+10. cluster C (BASELINE config 5): n = 31, f = 15 with Ed25519 client
+   and replica signatures (K7, K8) and HMAC-SHA256 USIGs (K6), one
+   engine with one 1,024 bucket, 50 clients, 2,400 requests, plus 8
+   forged REQUESTs; in every cluster phase every request must return,
+   every replica's ledger must hold exactly the honest requests with
+   equal state digests, every queue must be free of dispatch timeouts
+   and host-signed lanes, no ERROR record may come from the core or the
+   client, and the launch counters, zeroed just before the timed drive
+   and read just after, must show the path's kernels;
+11. one JSON line of per-kernel numbers (launches, parity, times, bounds).
 
 Kernel times are CUDA-event medians: ``ms`` brackets one wrapper call
 (host launch overhead included), ``device_ms`` replays the kernel
@@ -74,6 +86,25 @@ HBM_BYTES_PER_S = 3.35e12
 # high halves); a Montgomery multiply is 64 such products for a*b, 64 for
 # u*m and one 32-bit multiply for u.
 IMADS_PER_MONT_MUL = 2 * 128 + 1
+# IMAD issues of the least field ops mod m = 2^255 - 19 (K7, K8), counted
+# as the functions need them; every field op returns the unique fully
+# reduced value, so these give the kernels' bits.  A product of two 8-word
+# values is 64 32x32->64 products (36 for a square), two issues each; a
+# Montgomery reduction by this m is, per word, one 32-bit multiply for u
+# and one 32x32->64 product u*19 (u*2^255 is a shift).
+ED_REDC = 8 * (1 + 2)
+ED_MUL = 2 * 64 + ED_REDC
+ED_SQR = 2 * 36 + ED_REDC
+# Fermat inversion by the standard addition chain for p - 2.
+ED_INV = 254 * ED_SQR + 11 * ED_MUL
+# Doubling (dbl-2008-hwcd): 4 squarings, 4 multiplies.  Complete addition
+# with 2d*t stored beside each table entry: 8 multiplies, 7 when the entry
+# has Z = 1 (a mixed add); adding an identity entry (0 : 1 : 1 : 0) costs
+# its four output products, 3 multiplies and a square.
+ED_DBL = 4 * ED_SQR + 4 * ED_MUL
+ED_ADD = 8 * ED_MUL
+ED_MADD = 7 * ED_MUL
+ED_ADD_IDENTITY = 3 * ED_MUL + ED_SQR
 # Instructions of one SHA-256 compression (csrc/sha256.cuh) on sm_90,
 # counted as the least the function needs: per round 6 SHF (the rotates
 # of Sigma0 and Sigma1), 4 LOP3 (each Sigma's 3-way XOR, Ch, Maj) and 4
@@ -89,6 +120,11 @@ HMAC_ALU_OPS = 4 * SHA256_ALU_OPS + 16 + 8 + 1
 HMAC_ADD_OPS = 4 * SHA256_ADD_OPS
 # Requests of cluster phase A (the main path, n = 7).
 CLUSTER_A_REQUESTS = 10_000
+# Requests of cluster phase C (BASELINE config 5, n = 31).  Config 5
+# names a sustained 100k-request stream; this is a burst of two windows
+# of the 1,200 requests in flight (50 clients x 24), so its requests/s is
+# fill and drain, not that stream's steady rate.
+CLUSTER_C_REQUESTS = 2_400
 # How long each cluster request may take before its phase fails.
 REQUEST_TIMEOUT_S = 120.0
 
@@ -100,6 +136,58 @@ def int_mix(alu_ops: float, add_ops: float) -> float:
     the ALU pipe's share, or the whole mix at the SM's dispatch rate of
     128 lanes per clock, whichever is longer."""
     return max(alu_ops, (alu_ops + add_ops) / 2)
+
+
+def k7_imads(rows: np.ndarray) -> int:
+    """IMAD issues that K7's function needs on these [B, 82] packed rows,
+    summed over the lanes.  A lane with valid = 0 needs none (its verdict
+    is false).  A valid lane: 12 multiplies of setup (A' into the
+    Montgomery domain, its T, B + A' as a mixed add, 2d*t of A' and of
+    B + A'); from the top nonzero digit 2*bit(u1) + bit(u2) down, that
+    digit's entry is loaded and every lower bit costs a doubling plus,
+    for a nonzero digit, an add of A' or B (mixed) or B + A' (general);
+    then the inversion, x*zi and y*zi, and two reductions out of the
+    Montgomery domain."""
+    import numpy as np
+
+    from minbft_tpu_torch.ops import ed25519, limbs
+
+    nl = limbs.NLIMBS
+    live = rows[rows[:, ed25519.PACKED_COLS - 1] != 0]
+    if not len(live):
+        return 0
+
+    def bits(col: int) -> np.ndarray:  # [lanes, 256], index j = bit j
+        scalar = np.ascontiguousarray(live[:, col : col + nl]).astype("<u2")
+        return np.unpackbits(scalar.view(np.uint8), axis=1, bitorder="little")
+
+    digit = 2 * bits(2 * nl).astype(np.int64) + bits(3 * nl)
+    nonzero = digit != 0
+    has = nonzero.any(axis=1)
+    top = 255 - np.argmax(nonzero[:, ::-1], axis=1)
+    top_digit = digit[np.arange(len(live)), top]
+    general = (digit == 3).sum(axis=1) - (top_digit == 3)
+    mixed = nonzero.sum(axis=1) - general - 1
+    dbls = int(np.where(has, top, 0).sum())
+    general = int(np.where(has, general, 0).sum())
+    mixed = int(np.where(has, mixed, 0).sum())
+    per_lane = 12 * ED_MUL + ED_INV + 2 * ED_MUL + 2 * ED_REDC
+    return len(live) * per_lane + dbls * ED_DBL + mixed * ED_MADD + general * ED_ADD
+
+
+def k8_imads(r: np.ndarray) -> int:
+    """IMAD issues that K8's function needs on these [B, 16] nonce limbs,
+    summed over the lanes: the first window's add onto the identity needs
+    one multiply (T) for a nonzero nibble and none for zero; each later
+    window a mixed add of its table row (x, y, 2d*t; Z = 1), or the
+    identity's cheaper add for a zero nibble."""
+    import numpy as np
+
+    nib = (r.astype(np.int64)[:, :, None] >> np.array([0, 4, 8, 12])) & 0xF
+    nib = nib.reshape(len(r), 64)
+    zero_later = int((nib[:, 1:] == 0).sum())
+    return (int((nib[:, 0] != 0).sum()) * ED_MUL
+            + (nib[:, 1:].size - zero_later) * ED_MADD + zero_later * ED_ADD_IDENTITY)
 
 
 def fail(msg: str) -> None:
@@ -421,7 +509,7 @@ def check_flow(result: dict, n_requests: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phases 7-8: an in-process cluster committing requests (also driven on
+# Phases 8-10: an in-process cluster committing requests (also driven on
 # the CPU by tests/test_torch_cluster.py at a small size).
 
 
@@ -632,7 +720,7 @@ def check_engine(engine, label: str) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Phases 2-4: kernels against their plain versions.
+# Phases 2-4, 6 and 7: kernels against their plain versions.
 
 
 def verify_items(hc, rng, keys, count: int):
@@ -667,6 +755,51 @@ def verify_items(hc, rng, keys, count: int):
             items[i] = (q, dg, (r, hc.N))
         else:
             items[i] = (q, dg, (r, s ^ 1))
+    return items
+
+
+def undecodable_pub(hc) -> bytes:
+    """The first 32-byte encoding y = 2, 3, ... that is no curve point."""
+    y = 2
+    while hc.ed_decompress(y.to_bytes(32, "little")) is not None:
+        y += 1
+    return y.to_bytes(32, "little")
+
+
+def ed25519_items(hc, rng, seeds, count: int):
+    """``count`` Ed25519 verify items (pub32, msg32, sig64) with distinct
+    messages: honest lanes signed by the port's sign_batch on the card
+    (K8), and on every 16th lane (from lane 8) an adversarial one, in
+    turn: tampered message, wrong key, bit-flipped R, S + L,
+    non-canonical R (y >= p), undecodable public key, wrong-length
+    signature."""
+    from minbft_tpu_torch.ops import ed25519 as ed
+
+    pubs = [hc.ed25519_keygen(sd)[1] for sd in seeds]
+    msgs = [rng.bytes(32) for _ in range(count)]
+    who = [i % len(seeds) for i in range(count)]
+    sigs = ed.sign_batch([(seeds[w], m) for w, m in zip(who, msgs)], bucket=count)
+    items = [(pubs[w], m, sg) for w, m, sg in zip(who, msgs, sigs)]
+    bad_pub = undecodable_pub(hc)
+    for j, i in enumerate(range(8, count, 16)):
+        pub, msg, sig = items[i]
+        kind = j % 7
+        if kind == 0:
+            items[i] = (pub, rng.bytes(32), sig)
+        elif kind == 1:
+            items[i] = (pubs[(who[i] + 1) % len(pubs)], msg, sig)
+        elif kind == 2:
+            items[i] = (pub, msg, bytes([sig[0] ^ 1]) + sig[1:])
+        elif kind == 3:
+            s_big = int.from_bytes(sig[32:], "little") + hc.ED_L
+            items[i] = (pub, msg, sig[:32] + s_big.to_bytes(32, "little"))
+        elif kind == 4:
+            y_enc = (ed.P + j % 19) | (sig[31] >> 7 << 255)
+            items[i] = (pub, msg, y_enc.to_bytes(32, "little") + sig[32:])
+        elif kind == 5:
+            items[i] = (bad_pub, msg, sig)
+        else:
+            items[i] = (pub, msg, sig[:63])
     return items
 
 
@@ -722,7 +855,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from minbft_tpu_torch.ops import backend, hmac_sha256, limbs, p256, sha256
+    from minbft_tpu_torch.ops import backend, ed25519, hmac_sha256, limbs, p256, sha256
     from minbft_tpu_torch.parallel import BatchVerifier
     from minbft_tpu_torch.sample.authentication import authenticators_from_keys
     from minbft_tpu_torch.sample.authentication.authenticator import (
@@ -762,8 +895,8 @@ def main() -> int:
     # -- phase 2: K1 -----------------------------------------------------------
     nk1 = 4096
     k1_err = 0
-    for field, mod in (("p", p256.P), ("n", p256.N)):
-        spec = p256.FIELD if field == "p" else p256.ORDER
+    for field, mod in (("p", p256.P), ("n", p256.N), ("ed", ed25519.P)):
+        spec = limbs.field_spec(field)
         edges = [0, 1, 2, mod - 1, mod - 2, (1 << 256) - 1 - mod, mod >> 1, 1 << 255]
         va = edges + [rng.randbelow(mod) for _ in range(nk1 - len(edges))]
         vb = edges[::-1] + [rng.randbelow(mod) for _ in range(nk1 - len(edges))]
@@ -845,7 +978,7 @@ def main() -> int:
     nonces = [rng.randbelow(p256.N - 1) + 1 for _ in range(512)]
     k_d = torch.from_numpy(limbs.to_limbs_batch(nonces).astype(np.uint16)).to(dev)
     got = p256.ecdsa_kg_kernel(k_d).to(torch.int64)
-    want = p256.kg_plain(k_d, p256.comb_table("cpu").to(dev))
+    want = p256.kg_plain(k_d, p256.comb_table_limbs().to(dev))
     err = int((got - want).abs().max())
     check(err == 0, f"K3: kernel != plain (max |err| {err})")
     sign_items = [(keys[i % len(keys)][0], rng.bytes(32)) for i in range(512)]
@@ -855,7 +988,7 @@ def main() -> int:
         check(sigs[i] == hc.ecdsa_sign_py(d, dg), f"K3: signature {i} != host")
     k3_ms = cuda_ms(torch, lambda: p256.ecdsa_kg_kernel(k_d))
     k3_dev_ms = graph_ms(torch, lambda: p256.ecdsa_kg_kernel(k_d))
-    table_d = p256.comb_table("cpu").to(dev)
+    table_d = p256.comb_table_limbs().to(dev)
     k3_plain_ms = cuda_ms(torch, lambda: p256.kg_plain(k_d, table_d), reps=2, warm=1)
     k3_bound, k3_by = bound(512 * 64 * 11 * IMADS_PER_MONT_MUL, 512 * (32 + 64) + 65536)
     kernels["K3"] = dict(ms=k3_ms, device_ms=k3_dev_ms, plain_ms=k3_plain_ms,
@@ -894,6 +1027,8 @@ def main() -> int:
         "K3": p256.ecdsa_kg_kernel,
         "K5": sha256.sha256_compress,
         "K6": hmac_sha256.hmac_verify_kernel_packed,
+        "K7": ed25519.ed25519_verify_kernel_packed,
+        "K8": ed25519.ed25519_rb_kernel,
     }
 
     def reset_counts():
@@ -985,43 +1120,135 @@ def main() -> int:
                          ms_16384=k6[16384][0], device_ms_16384=k6[16384][1])
     print(f"K6 plain B=512: {k6_plain_ms:.1f} ms")
 
-    # -- phases 7 and 8: the in-process cluster -----------------------------------
+    # -- phase 7: K7 and K8 ----------------------------------------------------------
+    ed_seeds = [rng.bytes(32) for _ in range(8)]
+    k7 = {}
+    for bsz in (1024, 16384):
+        # Distinct rows at each size (fresh messages, signed on the card);
+        # the last 8 rows are engine padding (all zero, valid = 0).
+        items = ed25519_items(hc, rng, ed_seeds, bsz - 8)
+        rows = ed25519.prepare_packed(items, bsz)
+        live = rows[rows[:, ed25519.PACKED_COLS - 1] != 0]
+        check(len({r.tobytes() for r in live}) == len(live), f"K7 B={bsz}: rows repeat")
+        rows_d = torch.from_numpy(rows).to(dev)
+        got = ed25519.ed25519_verify_kernel_packed(rows_d)
+        torch.cuda.synchronize()
+        want = ed25519.verify_packed_plain(rows_d)
+        mism = int((got != want).sum())
+        check(mism == 0, f"K7 B={bsz}: {mism} lanes differ from the plain version")
+        got_np = got.cpu().numpy()
+        check(not got_np[bsz - 8:].any(), f"K7 B={bsz}: a padding row accepted")
+        adversarial = list(range(8, bsz - 8, 16))
+        check(not got_np[adversarial].any(), f"K7 B={bsz}: an adversarial lane accepted")
+        # The host oracle is pure Python: a spread sample (a prime stride)
+        # plus the first two adversarial lanes of each kind.
+        oracle = sorted(set(range(3, bsz - 8, 7 if bsz == 1024 else 97))
+                        | set(adversarial[:14]))
+        host = {i: hc.ed25519_verify_py(*items[i]) for i in oracle}
+        check(sum(host.values()) > len(host) // 2, f"K7 B={bsz}: too few honest lanes")
+        for i, ok in host.items():
+            if bool(got_np[i]) != ok:
+                fail(f"K7 B={bsz} lane {i}: kernel {bool(got_np[i])} != host {ok}")
+        ms = cuda_ms(torch, lambda: ed25519.ed25519_verify_kernel_packed(rows_d))
+        dev_ms = graph_ms(torch, lambda: ed25519.ed25519_verify_kernel_packed(rows_d),
+                          copies=5)
+        imads = k7_imads(rows)
+        b_ms, b_by = bound(imads, bsz * (ed25519.PACKED_COLS * 2 + 1))
+        k7[bsz] = (ms, dev_ms, b_ms, b_by)
+        print(f"K7 B={bsz}: verdicts equal plain on every lane and host on "
+              f"{len(host)} lanes ({int(got_np.sum())} accepted, {len(adversarial)} "
+              f"adversarial, 8 zero rows); {ms:.3f} ms per batch ({dev_ms:.3f} on the "
+              f"device, {bsz / dev_ms * 1e3:,.0f} verifies/s), bound {b_ms:.4f} ms by {b_by} "
+              f"({imads / bsz:,.0f} IMAD issues per lane)")
+        if bsz == 1024:
+            k7_plain_ms = cuda_ms(
+                torch, lambda: ed25519.verify_packed_plain(rows_d), reps=1, warm=1
+            )
+    kernels["K7"] = dict(ms=k7[1024][0], device_ms=k7[1024][1], plain_ms=k7_plain_ms,
+                         bound_ms=k7[1024][2], bound_by=k7[1024][3], max_abs_err=0,
+                         ms_16384=k7[16384][0], device_ms_16384=k7[16384][1],
+                         bound_ms_16384=k7[16384][2])
+    print(f"K7 plain B=1024: {k7_plain_ms:.1f} ms")
+
+    k8 = {}
+    table_d = ed25519.comb_table_limbs().to(dev)
+    for bsz in (1024, 16384):
+        nonces = [0, 1, ed25519.L - 1] + [rng.randbelow(ed25519.L) for _ in range(bsz - 3)]
+        r_np = limbs.to_limbs_batch(nonces).astype(np.uint16)
+        r_d = torch.from_numpy(r_np).to(dev)
+        got = ed25519.ed25519_rb_kernel(r_d).to(torch.int64)
+        torch.cuda.synchronize()
+        want = ed25519.rb_plain(r_d, table_d)
+        err = int((got - want).abs().max())
+        check(err == 0, f"K8 B={bsz}: kernel != plain (max |err| {err})")
+        ms = cuda_ms(torch, lambda: ed25519.ed25519_rb_kernel(r_d))
+        dev_ms = graph_ms(torch, lambda: ed25519.ed25519_rb_kernel(r_d))
+        imads = k8_imads(r_np)
+        b_ms, b_by = bound(imads, bsz * (32 + 96) + table_d.numel() * 2)
+        k8[bsz] = (ms, dev_ms, b_ms, b_by)
+        print(f"K8 B={bsz}: (X, Y, Z) equal plain bit for bit (r = 0, 1, L-1 "
+              f"included); {ms:.3f} ms per batch ({dev_ms:.3f} on the device), "
+              f"bound {b_ms:.5f} ms by {b_by} ({imads / bsz:,.0f} IMAD issues per lane)")
+        if bsz == 1024:
+            k8_plain_ms = cuda_ms(torch, lambda: ed25519.rb_plain(r_d, table_d),
+                                  reps=2, warm=1)
+    sign_items = [(ed_seeds[i % len(ed_seeds)], rng.bytes(32)) for i in range(1024)]
+    sigs = ed25519.sign_batch(sign_items, bucket=1024)
+    for i in range(0, 1024, 4):
+        check(sigs[i] == hc.ed25519_sign(*sign_items[i]), f"K8: signature {i} != host")
+    kernels["K8"] = dict(ms=k8[1024][0], device_ms=k8[1024][1], plain_ms=k8_plain_ms,
+                         bound_ms=k8[1024][2], bound_by=k8[1024][3], max_abs_err=0,
+                         ms_16384=k8[16384][0], device_ms_16384=k8[16384][1],
+                         bound_ms_16384=k8[16384][2])
+    print(f"K8 plain B=1024: {k8_plain_ms:.1f} ms; 256 sign_batch signatures "
+          f"byte-identical to hostcrypto.ed25519_sign")
+
+    # -- phases 8 to 10: the in-process clusters -----------------------------------
     cluster_phases = (
-        # (label, n, f, usig kind, clients, depth, requests, forged)
-        ("cluster_ecdsa", 7, 3, "ecdsa", 100, 24, CLUSTER_A_REQUESTS, 0),
-        ("cluster_hmac", 4, 1, "hmac", 50, 24, 4000, 8),
+        # (label, n, f, signature scheme, usig kind, bucket, clients, depth,
+        #  requests, forged, the path's kernels)
+        ("cluster_ecdsa", 7, 3, "ecdsa-p256", "ecdsa", 512, 100, 24,
+         CLUSTER_A_REQUESTS, 0, ("K2", "K3")),
+        ("cluster_hmac", 4, 1, "ecdsa-p256", "hmac", 512, 50, 24, 4000, 8,
+         ("K2", "K3", "K6")),
+        ("cluster_ed25519", 31, 15, "ed25519", "hmac", 1024, 50, 24,
+         CLUSTER_C_REQUESTS, 8, ("K6", "K7", "K8")),
     )
-    for label, cn, cf, kind, ncl, depth, nreq, nforged in cluster_phases:
-        ckeys = make_test_keys(cn, ncl + (1 if nforged else 0), kind, rng=rng)
-        shared = BatchVerifier(max_batch=512, buckets=(512,))
+    for (label, cn, cf, scheme, kind, bucket, ncl, depth, nreq, nforged,
+         need) in cluster_phases:
+        ckeys = make_test_keys(cn, ncl + (1 if nforged else 0), kind, rng=rng,
+                               scheme=scheme)
+        shared = BatchVerifier(max_batch=bucket, buckets=(bucket,))
         res = asyncio.run(run_cluster(
             ckeys, cf, shared, ncl, depth, nreq, (reset_counts, read_counts),
             forged=nforged,
         ))
         check_cluster(res, label)
         win = res["window"]
-        need = ("K2", "K3", "K6") if kind == "hmac" else ("K2", "K3")
         check(all(win[k] > 0 for k in need),
               f"{label}: a kernel of the path was not launched {win}")
         path_launches[label] = win
         for line in check_engine(shared, label):
             print(line)
         # Kernel-busy share, estimated: each launch at its kernel's device
-        # time from phases 3, 4 and 6 (all at the 512 bucket the engine
-        # uses), over the drive's wall time.
+        # time from phases 3, 4, 6 and 7 at the engine's bucket (K6 at 512
+        # in cluster C too: it was timed at 512 and 16,384 only, and a K6
+        # launch is under 0.01 ms at either), over the drive's wall time.
         busy_s = sum(
-            win[kid] * kernels[kid]["device_ms"] for kid in ("K2", "K3", "K6")
+            win[kid] * kernels[kid]["device_ms"] for kid in need
         ) / 1e3
-        print(f"{label}: n={cn} f={cf} usig={kind} clients={ncl} depth={depth} "
-              f"requests={res['requests']}: {res['wall_s']:.2f} s wall "
-              f"(kernel-busy estimate {busy_s:.3f} s, "
-              f"{busy_s / res['wall_s']:.1%}; host CPU {res['host_cpu_s']:.2f} s), "
+        dropped = res["dropped"]
+        print(f"{label}: n={cn} f={cf} scheme={scheme} usig={kind} bucket={bucket} "
+              f"clients={ncl} depth={depth} requests={res['requests']}: "
+              f"{res['wall_s']:.2f} s wall (kernel-busy estimate {busy_s:.3f} s, "
+              f"{busy_s / res['wall_s']:.1%}; host CPU {res['host_cpu_s']:.2f} s, "
+              f"{res['host_cpu_s'] / res['wall_s']:.2f} per wall s), "
               f"{res['committed_per_s']:,.1f} committed requests/s, latency p50 "
               f"{res['latency_p50_ms']:.1f} ms p99 {res['latency_p99_ms']:.1f} ms, "
               f"forged {nforged} (replies {res['replies_to_forged']}, dropped "
-              f"{res['dropped']}), launches {win}")
+              f"{min(dropped)}-{max(dropped)} per replica), launches {win}")
 
-    # -- phase 9 -----------------------------------------------------------------
+    # -- phase 11 ----------------------------------------------------------------
     meta = {
         "K1": ("field_op (csrc/field.cuh library)", "minbft_tpu_torch/csrc/field.cuh",
                "minbft_tpu/ops/limbs.py:335"),
@@ -1033,6 +1260,10 @@ def main() -> int:
                "minbft_tpu_torch/csrc/sha256.cuh", "minbft_tpu/ops/sha256.py:65"),
         "K6": ("hmac_verify_kernel_packed", "minbft_tpu_torch/csrc/hmac_sha256.cu",
                "minbft_tpu/ops/hmac_sha256.py:68"),
+        "K7": ("ed25519_verify_kernel_packed", "minbft_tpu_torch/csrc/ed25519_verify.cu",
+               "minbft_tpu/ops/ed25519.py:400"),
+        "K8": ("ed25519_rb_kernel", "minbft_tpu_torch/csrc/ed25519_rb.cu",
+               "minbft_tpu/ops/ed25519.py:487"),
     }
     line = []
     for kid, (name, src, replaces) in meta.items():
@@ -1041,11 +1272,11 @@ def main() -> int:
             "name": f"{kid} {name}", "route": "cuda", "source": src,
             "replaces": replaces,
             # Each count is the wrapper's own, read around each path
-            # (the flow and the two cluster phases) and summed;
+            # (the flow and the three cluster phases) and summed;
             # launches_by_path holds the reads.  K1 and K5 are __device__
-            # functions inlined into K2/K3 and K6, so their arithmetic runs
-            # inside those launches and their test kernels (phases 2 and 6
-            # only) count 0 there.
+            # functions inlined into K2/K3/K7/K8 and K6, so their arithmetic
+            # runs inside those launches and their test kernels (phases 2
+            # and 6 only) count 0 there.
             "launches": sum(p[kid] for p in path_launches.values()),
             "launches_by_path": {
                 path: counts[kid] for path, counts in path_launches.items()
@@ -1057,12 +1288,14 @@ def main() -> int:
             "parity": "exact",
         }
         if kid == "K1":
-            entry["inlined_into"] = ["K2", "K3"]
+            entry["inlined_into"] = ["K2", "K3", "K7", "K8"]
         if kid == "K5":
             entry["inlined_into"] = ["K6"]
-        if kid in ("K2", "K6"):
+        if kid in ("K2", "K6", "K7", "K8"):
             entry["ms_b16384"] = k["ms_16384"]
             entry["device_ms_b16384"] = k["device_ms_16384"]
+        if kid in ("K7", "K8"):
+            entry["bound_ms_b16384"] = k["bound_ms_16384"]
         line.append(entry)
     print(f"total smoke time {time.perf_counter() - t_start:.1f} s on {name_power}")
     print(json.dumps({"kernels": line}))

@@ -1,5 +1,6 @@
-// K1: 256-bit Montgomery field arithmetic for the P-256 prime p and the
-// group order n, as a __device__ library inlined into K2 and K3.
+// K1: 256-bit Montgomery field arithmetic for the P-256 prime p, the
+// group order n and the Ed25519 prime 2^255 - 19, as a __device__ library
+// inlined into K2, K3, K7 and K8.
 //
 // Replaces: minbft_tpu/ops/limbs.py (mont_mul with its unrolled / block /
 // loop lowerings, _mont_finish, _cond_sub, add_mod, sub_mod,
@@ -55,6 +56,19 @@ static __constant__ FieldConsts kOrderN = {
     {0xfc63254fu, 0xf3b9cac2u, 0xa7179e84u, 0xbce6faadu, 0xffffffffu,
      0xffffffffu, 0x00000000u, 0xffffffffu},
     0xee00bc4fu};
+
+// The Ed25519 prime 2^255 - 19 (K7, K8): one = 2^256 mod m = 38,
+// r2 = 38^2 = 1444.
+static __constant__ FieldConsts kFieldEd = {
+    {0xffffffedu, 0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
+     0xffffffffu, 0xffffffffu, 0x7fffffffu},
+    {0x00000026u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
+     0x00000000u, 0x00000000u, 0x00000000u},
+    {0x000005a4u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
+     0x00000000u, 0x00000000u, 0x00000000u},
+    {0xffffffebu, 0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
+     0xffffffffu, 0xffffffffu, 0x7fffffffu},
+    0x286bca1bu};
 
 // Montgomery-domain generator of P-256 (G * R mod p).
 static __constant__ uint32_t kGxM[8] = {0x18a9143cu, 0x79e730d4u, 0x5fedb601u,
@@ -174,7 +188,8 @@ __device__ __forceinline__ Fe sub_mod(const Fe& a, const Fe& b,
 // Word-level CIOS Montgomery product a*b*2^-256 mod m.  The pre-subtract
 // value (a*b + U*m) / 2^256 does not depend on the word size (U is the
 // unique value < 2^256 with a*b + U*m = 0 mod 2^256), so it equals the
-// reference's 16-bit lazy-carry CIOS value, t_hi included.
+// reference's 16-bit lazy-carry CIOS value, t_hi included.  The argument
+// holds for any odd m, so it covers kFieldEd as well as kFieldP/kOrderN.
 __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b,
                                        const FieldConsts& F) {
   uint32_t t[10];

@@ -1,6 +1,7 @@
 // K1 test kernel: one field op of csrc/field.cuh per lane, so the device
-// library that K2 and K3 inline can be held against the plain PyTorch ops
-// of minbft_tpu_torch/ops/limbs.py (field_op_plain) on the card.
+// library that K2, K3, K7 and K8 inline can be held against the plain
+// PyTorch ops of minbft_tpu_torch/ops/limbs.py (field_op_plain) on the
+// card, mod each of its three moduli.
 //
 // Replaces (as a checkable unit): the limb arithmetic of
 // minbft_tpu/ops/limbs.py; see field.cuh for the bound and the design.
@@ -27,7 +28,8 @@ __global__ void __launch_bounds__(kThreads)
                     int n) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const FieldConsts& f = kField == 0 ? kFieldP : kOrderN;
+  const FieldConsts& f =
+      kField == 0 ? kFieldP : kField == 1 ? kOrderN : kFieldEd;
   Fe x = fe_from_u16(a + (size_t)lane * 16);
   Fe y = fe_from_u16(b + (size_t)lane * 16);
   Fe r = fe_zero();
@@ -51,21 +53,25 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// a, b, out: [n, 16] u16 limb rows on the device; field 0 = p, 1 = n.
+// a, b, out: [n, 16] u16 limb rows on the device; field 0 = the P-256
+// prime p, 1 = its group order n, 2 = the Ed25519 prime 2^255 - 19.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int mbt_field_op(int op, int field, const void* a, const void* b, void* out,
                  int n, void* stream) {
-  if (op < kMul || op > kIsZero || field < 0 || field > 1)
+  if (op < kMul || op > kIsZero || field < 0 || field > 2)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     int blocks = (n + kThreads - 1) / kThreads;
     cudaStream_t s = (cudaStream_t)stream;
+    const uint16_t* pa = (const uint16_t*)a;
+    const uint16_t* pb = (const uint16_t*)b;
+    uint16_t* po = (uint16_t*)out;
     if (field == 0)
-      field_op_kernel<0><<<blocks, kThreads, 0, s>>>(
-          op, (const uint16_t*)a, (const uint16_t*)b, (uint16_t*)out, n);
+      field_op_kernel<0><<<blocks, kThreads, 0, s>>>(op, pa, pb, po, n);
+    else if (field == 1)
+      field_op_kernel<1><<<blocks, kThreads, 0, s>>>(op, pa, pb, po, n);
     else
-      field_op_kernel<1><<<blocks, kThreads, 0, s>>>(
-          op, (const uint16_t*)a, (const uint16_t*)b, (uint16_t*)out, n);
+      field_op_kernel<2><<<blocks, kThreads, 0, s>>>(op, pa, pb, po, n);
   }
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,7 @@ Port of :mod:`minbft_tpu.ops.limbs`.  Three layers:
   These are the CPU path and the yardstick the CUDA kernels are held
   against.
 - **K1** (:func:`field_op`): a launchable test kernel over the device
-  field library ``csrc/field.cuh`` that K2 and K3 are built on.
+  field library ``csrc/field.cuh`` that K2, K3, K7 and K8 are built on.
 
 Nothing here imports ``jax`` or the JAX package.
 """
@@ -398,14 +398,22 @@ def mont_mul_many(spec: FieldSpec, pairs) -> list:
 # its three lowerings, _mont_finish, _cond_sub, add_mod, sub_mod,
 # mont_pow_static, mont_inv), which the TPU program inlined into every
 # kernel.  On the H100 it is csrc/field.cuh, a __device__ library inlined
-# into K2 and K3; csrc/field_op.cu wraps one op per launch so the library
-# can be held against the plain ops above.
+# into K2, K3, K7 and K8; csrc/field_op.cu wraps one op per launch so the
+# library can be held against the plain ops above.
 
 FIELD_OPS = (
     "mul", "sqr", "add", "sub", "to_mont", "from_mont", "inv",
     "select", "eq", "is_zero",
 )
-_FIELDS = {"p": 0, "n": 1}
+_FIELDS = {"p": 0, "n": 1, "ed": 2}
+
+
+def field_spec(field: str) -> FieldSpec:
+    """The modulus of a K1 field name: ``"p"`` the P-256 prime, ``"n"``
+    its group order, ``"ed"`` the Ed25519 prime 2^255 - 19."""
+    from . import ed25519, p256  # the field constants live with the curves
+
+    return {"p": p256.FIELD, "n": p256.ORDER, "ed": ed25519.FIELD}[field]
 
 
 def field_op_plain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
@@ -437,13 +445,11 @@ def field_op_plain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
 
 def field_op(op: str, a: torch.Tensor, b: torch.Tensor, field: str = "p"):
     """One field op over [B, 16] uint16 limb rows -> [B, 16] uint16, mod
-    the P-256 prime (``field="p"``) or the group order (``"n"``).
+    the modulus :func:`field_spec` names (``"p"``, ``"n"`` or ``"ed"``).
 
     CPU tensors take the plain version; CUDA tensors launch K1
     (``csrc/field_op.cu``) or raise."""
-    from . import p256  # the field constants live with the curve
-
-    spec = p256.FIELD if field == "p" else p256.ORDER
+    spec = field_spec(field)
     if a.device.type == "cpu":
         out = field_op_plain(op, spec, a.to(torch.int64), b.to(torch.int64))
         return out.to(torch.uint16)

@@ -487,13 +487,18 @@ def kg_plain(k: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def comb_table(device: str) -> torch.Tensor:
-    """The comb table on ``device``, built once per device: [64, 16, 2, 16]
-    int64 limbs on the CPU (the plain version's layout), [64, 16, 2, 8]
-    32-bit words (stored as int32, 64 KiB) on a CUDA device."""
+def comb_table_limbs() -> torch.Tensor:
+    """The plain version's comb table, built once: [64, 16, 2, 16] int64
+    limbs on the CPU (move it with ``.to`` to run the plain version on
+    another device)."""
+    return torch.from_numpy(_comb_table_np().astype(np.int64))
+
+
+@functools.lru_cache(maxsize=None)
+def comb_table_words(device: str) -> torch.Tensor:
+    """K3's comb table on the CUDA ``device``, uploaded once: [64, 16, 2, 8]
+    32-bit words (stored as int32, 64 KiB)."""
     tab = _comb_table_np()
-    if torch.device(device).type == "cpu":
-        return torch.from_numpy(tab.astype(np.int64))
     words = tab[..., 0::2] | (tab[..., 1::2] << np.uint32(16))
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(device)
 
@@ -505,12 +510,12 @@ def ecdsa_kg_kernel(k: torch.Tensor) -> torch.Tensor:
     CPU: the plain version.  CUDA: K3 (``csrc/p256_kg.cu``, one thread
     per lane, the table in global memory) on the current stream."""
     if k.device.type == "cpu":
-        return kg_plain(k, comb_table("cpu")).to(torch.uint16)
+        return kg_plain(k, comb_table_limbs()).to(torch.uint16)
     if k.device.type != "cuda":
         raise ValueError(f"ecdsa_kg_kernel: unsupported device {k.device}")
     n = k.shape[0]
     backend.require(k, torch.uint16, (n, limbs.NLIMBS), "kg nonces")
-    table = comb_table(str(k.device))
+    table = comb_table_words(str(k.device))
     out = torch.empty((n, 2, limbs.NLIMBS), dtype=torch.uint16, device=k.device)
     lib = backend.EXTENSION.library("p256_kg")
     with torch.cuda.device(k.device):  # the launch goes to the current device

@@ -13,9 +13,9 @@ kernels).  The queue machinery is the reference's, unchanged:
 4. a worker thread (``asyncio.to_thread``, at most ``max_inflight`` per
    scheme) packs it into a recycled pinned staging tensor, copies it to
    the device and launches the kernel on PyTorch's current stream (K2
-   for ECDSA verification, K6 for HMAC-SHA256 verification, K3 for
-   signing), then resolves every awaiting future
-   with its lane's result.
+   for ECDSA verification, K6 for HMAC-SHA256 verification, K7 for
+   Ed25519 verification, K3 and K8 for ECDSA and Ed25519 signing), then
+   resolves every awaiting future with its lane's result.
 
 The flush policy, the bucket ladder, the dedup memo and the stats are
 the reference's.  Nothing here moves the card's work to the host: a
@@ -24,8 +24,10 @@ the awaiting futures as exceptions.  (The reference re-runs a hung batch
 on the host and writes the device off; the port keeps only the timeout,
 so a hung card fails loudly instead of turning into host throughput.)
 
-This slice carries the ECDSA-P256 verify and sign queues and the
-HMAC-SHA256 verify queue.  The Ed25519 queues come with their kernels.
+The queues: ECDSA-P256 verify and sign, HMAC-SHA256 verify, Ed25519
+verify and sign.  The reference's Ed25519 host queue
+(``verify_ed25519_host``) is left out, as its ECDSA host queue was: it
+moved the card's work to the host.
 """
 
 from __future__ import annotations
@@ -485,9 +487,10 @@ class _SignQueue(_DispatchQueue):
 class BatchVerifier:
     """The GPU-backed batch verification and signing engine.
 
-    Schemes of this slice: ``ecdsa_p256`` (verify items:
-    ((qx, qy), digest32, (r, s)); sign items: (d, digest32)) and
-    ``hmac_sha256`` (verify items: (key32, msg32, mac32)).
+    Schemes: ``ecdsa_p256`` (verify items: ((qx, qy), digest32, (r, s));
+    sign items: (d, digest32)), ``hmac_sha256`` (verify items: (key32,
+    msg32, mac32)) and ``ed25519`` (verify items: (pub32, msg, sig64);
+    sign items: (seed32, msg)).
 
     ``device``: ``None`` is ``cuda:0``; ``"cpu"`` runs the plain PyTorch
     versions of the kernels; CUDA asked for and absent raises
@@ -498,9 +501,10 @@ class BatchVerifier:
     device fed while the next batch accumulates).  ``dispatch_timeout``
     fails a batch whose dispatch runs longer (0 disables).
     ``sign_on_device`` matters only on the CPU: there ``None``/False signs
-    with the serial host signer and True with the plain k*G; a CUDA
-    engine always signs with K3 (False raises ``ValueError``).  ``mesh``
-    (multi-GPU) is not ported yet and raises ``NotImplementedError``.
+    with the serial host signer and True with the plain k*G / r*B; a
+    CUDA engine always signs with K3 and K8 (False raises
+    ``ValueError``).  ``mesh`` (multi-GPU) is not ported yet and raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -528,12 +532,13 @@ class BatchVerifier:
         self.sign_on_device = self.device.type == "cuda" or bool(sign_on_device)
         if self.device.type == "cuda":
             # Build the kernels (once per process, under the extension's
-            # lock) and upload the comb table now, so no dispatch pays
+            # lock) and upload the comb tables now, so no dispatch pays
             # for them inside its timeout.
             backend.EXTENSION.build_all()
-            from ..ops import p256
+            from ..ops import ed25519, p256
 
-            p256.comb_table(str(self.device))
+            p256.comb_table_words(str(self.device))
+            ed25519.comb_table_words(str(self.device))
         # A dispatch that exceeds this many seconds is abandoned and its
         # batch fails; see _DispatchQueue._dispatch_timed.  0 disables.
         self.dispatch_timeout = dispatch_timeout
@@ -637,6 +642,9 @@ class BatchVerifier:
             "ecdsa_p256": lambda items: [
                 hc.ecdsa_sign(d, digest) for d, digest in items
             ],
+            "ed25519": lambda items: [
+                hc.ed25519_sign(seed, msg) for seed, msg in items
+            ],
         }[name]
 
     @property
@@ -679,6 +687,17 @@ class BatchVerifier:
         ``items = [((qx, qy), digest32, (r, s)), ...]`` -> [bool, ...]."""
         return await self._verify_many("ecdsa_p256", self._dispatch_ecdsa, items)
 
+    async def verify_ed25519(self, pub: bytes, msg: bytes, sig: bytes) -> bool:
+        """Strict Ed25519 verification of ``sig`` over ``msg`` under
+        ``pub``, one lane of K7."""
+        q = self._queue("ed25519", self._dispatch_ed25519)
+        return await q.submit((pub, msg, sig))
+
+    async def verify_ed25519_many(self, items) -> list:
+        """Batch sibling of :meth:`verify_ed25519`:
+        ``items = [(pub32, msg, sig64), ...]`` -> [bool, ...]."""
+        return await self._verify_many("ed25519", self._dispatch_ed25519, items)
+
     # -- signing ------------------------------------------------------------
     #
     # USIG UI signing must NEVER route here: its counter is incremented
@@ -690,6 +709,13 @@ class BatchVerifier:
         ``hostcrypto.ecdsa_sign_py`` on the device path."""
         q = self._sign_queue("ecdsa_p256", self._dispatch_sign_ecdsa)
         return await q.submit((d, digest))
+
+    async def sign_ed25519(self, seed: bytes, msg: bytes) -> bytes:
+        """Batch-sign ``msg`` under the 32-byte ``seed`` -> signature64.
+        RFC 8032 deterministic — byte-identical to
+        ``hostcrypto.ed25519_sign`` on the device path."""
+        q = self._sign_queue("ed25519", self._dispatch_sign_ed25519)
+        return await q.submit((seed, msg))
 
     # -- dispatchers (worker thread; the device work happens here) ----------
     #
@@ -771,6 +797,23 @@ class BatchVerifier:
         finally:
             self._staging.release(staging)
 
+    def _dispatch_ed25519(self, items) -> np.ndarray:
+        from ..ops import ed25519 as ed
+
+        n = len(items)
+        b = _bucket_for(n, self.buckets)
+        t0 = time.perf_counter()
+        staging = self._staging.acquire((b, ed.PACKED_COLS), torch.uint16)
+        try:
+            ed.prepare_packed(items, b, out=staging.numpy())
+            self._note_prep("ed25519", b - n, time.perf_counter() - t0)
+            with self._device_scope():
+                rows = staging.to(self.device, non_blocking=True)
+                out = ed.ed25519_verify_kernel_packed(rows)
+                return out[:n].cpu().numpy()
+        finally:
+            self._staging.release(staging)
+
     def _dispatch_sign_ecdsa(self, items) -> list:
         from ..ops import p256
 
@@ -788,6 +831,27 @@ class BatchVerifier:
             sigs = p256.sign_finish(items, meta, xz)
             prep += time.perf_counter() - t1
             self._note_sign_prep("ecdsa_p256", b - n, prep)
+            return sigs
+        finally:
+            self._staging.release(staging)
+
+    def _dispatch_sign_ed25519(self, items) -> list:
+        from ..ops import ed25519 as ed
+
+        n = len(items)
+        b = _bucket_for(n, self.buckets)
+        t0 = time.perf_counter()
+        staging = self._staging.acquire((b, ed.SIGN_COLS), torch.uint16)
+        try:
+            _r, meta = ed.sign_prepare(items, b, out=staging.numpy())
+            prep = time.perf_counter() - t0
+            with self._device_scope():
+                r = staging.to(self.device, non_blocking=True)
+                xyz = ed.ed25519_rb_kernel(r).cpu().numpy()
+            t1 = time.perf_counter()
+            sigs = ed.sign_finish(meta, xyz)
+            prep += time.perf_counter() - t1
+            self._note_sign_prep("ed25519", b - n, prep)
             return sigs
         finally:
             self._staging.release(staging)

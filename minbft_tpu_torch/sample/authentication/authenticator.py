@@ -1,16 +1,18 @@
 """The sample Authenticator: role → scheme dispatch with GPU batch verify.
 
 Port of :mod:`minbft_tpu.sample.authentication.authenticator` for the
-``ecdsa-p256`` scheme.  Every ``verify`` call becomes an awaitable lane of
-the :class:`minbft_tpu_torch.parallel.BatchVerifier` (K2 on the card),
-and own CLIENT/REPLICA signatures go through the engine's sign queue (K3).
-USIG certificates are checked in the engine too: ECDSA ones by K2,
-HMAC-SHA256 ones by K6.  The Ed25519 scheme, the wider NIST host curves,
-the keystore, keytool and MAC authenticator come with later slices.
+``ecdsa-p256`` and ``ed25519`` schemes.  Every ``verify`` call becomes an
+awaitable lane of the :class:`minbft_tpu_torch.parallel.BatchVerifier`
+(K2 or K7 on the card), and own CLIENT/REPLICA signatures go through the
+engine's sign queue (K3 or K8).  USIG certificates are checked in the
+engine too: ECDSA ones by K2, HMAC-SHA256 ones by K6.  The wider NIST
+host curves, the keystore, keytool and MAC authenticator come with later
+slices.
 
 Scheme wire formats (canonical, byte-identical to the reference):
 
 - ECDSA-P256 signature tag: r(32) || s(32), big-endian.
+- Ed25519 signature tag: RFC 8032 (R(32) || S(32)) over SHA-256(msg).
 - USIG tag: marshalled UI = counter_be8 || cert, where cert =
   epoch(8) || scheme-specific certificate (see usig/software.py).
 
@@ -47,7 +49,7 @@ class SigScheme:
     """Public-key signature scheme plug-in.
 
     ``verify`` placement: ``engine=None`` verifies inline on the host;
-    with an engine, the item joins the engine's verify queue (K2)."""
+    with an engine, the item joins the engine's verify queue (K2 or K7)."""
 
     name = "?"
     sign_capable = False
@@ -115,15 +117,38 @@ class EcdsaScheme(SigScheme):
         ]
 
 
-SCHEMES = {s.name: s for s in (EcdsaScheme(),)}
+class Ed25519Scheme(SigScheme):
+    """Ed25519 over SHA-256(msg), as the reference signs and verifies it
+    (so port and reference replicas agree on every tag)."""
+
+    name = "ed25519"
+    sign_capable = True
+
+    def sign(self, priv: bytes, msg: bytes) -> bytes:
+        return hc.ed25519_sign(priv, hashlib.sha256(msg).digest())
+
+    async def sign_async(self, priv: bytes, msg: bytes, engine) -> bytes:
+        return await engine.sign_ed25519(priv, hashlib.sha256(msg).digest())
+
+    async def verify(self, pub: bytes, msg: bytes, tag: bytes, engine) -> bool:
+        digest = hashlib.sha256(msg).digest()
+        if engine is not None:
+            return await engine.verify_ed25519(pub, digest, tag)
+        return hc.ed25519_verify(pub, digest, tag)
+
+    async def verify_many(self, items, engine) -> list:
+        if engine is None:
+            return await super().verify_many(items, engine)
+        lanes = [
+            (pub, hashlib.sha256(msg).digest(), tag) for pub, msg, tag in items
+        ]
+        return await engine.verify_ed25519_many(lanes) if lanes else []
+
+
+SCHEMES = {s.name: s for s in (EcdsaScheme(), Ed25519Scheme())}
 
 
 def _scheme(name: str) -> SigScheme:
-    if name == "ed25519":
-        raise NotImplementedError(
-            "the ed25519 scheme needs the Ed25519 kernels, which are not "
-            "ported yet: ROADMAP.md queue 1 item 9"
-        )
     if name not in SCHEMES:
         raise ValueError(f"unknown scheme {name!r}")
     return SCHEMES[name]
@@ -197,8 +222,8 @@ class SampleAuthenticator(api.Authenticator):
         # before rejecting (only relevant before a peer's epoch is known).
         self.tofu_capture_timeout = 10.0
         # With an engine, CLIENT/REPLICA signatures are verified in its
-        # verify queue (K2) and own ones signed in its sign queue (K3);
-        # USIG signing is unaffected by design — see
+        # verify queue (K2 or K7) and own ones signed in its sign queue
+        # (K3 or K8); USIG signing is unaffected by design — see
         # generate_message_authen_tag_async.
         self._engine = engine
 
@@ -528,8 +553,7 @@ def new_test_authenticators(
     """Generate a coherent set of authenticators for an in-process testnet
     with fresh keys.  Returns (replica_auths, client_auths).  See
     :func:`authenticators_from_keys` for the arguments."""
-    _scheme(scheme)
-    keys = make_test_keys(n, n_clients, usig_kind)
+    keys = make_test_keys(n, n_clients, usig_kind, scheme=scheme)
     return authenticators_from_keys(
         keys,
         engine=engine,
@@ -546,10 +570,13 @@ def new_test_authenticators(
 # carrying weights across:
 #
 #   n                  replica count
-#   replica_priv       [n] ECDSA scalars (Python ints)
-#   replica_pub        [n, 64] uint8: x || y, big-endian
-#   client_priv        [c] ECDSA scalars
-#   client_pub         [c, 64] uint8
+#   scheme             "ecdsa-p256" (the default when absent) or "ed25519"
+#   replica_priv       [n] ECDSA scalars (Python ints) or Ed25519 32-byte
+#                      seeds
+#   replica_pub        [n, 64] uint8: x || y, big-endian (ECDSA), or
+#                      [n, 32] uint8 compressed public keys (Ed25519)
+#   client_priv        [c] as replica_priv
+#   client_pub         [c, 64] or [c, 32] uint8
 #   usig_kind          "ecdsa" or "hmac"
 #   usig_priv          [n] USIG ECDSA scalars (ecdsa kind)
 #   usig_key           32-byte shared MAC key (hmac kind)
@@ -570,21 +597,46 @@ def pub_from_row(row) -> Tuple[int, int]:
     return int.from_bytes(raw[:32], "big"), int.from_bytes(raw[32:], "big")
 
 
+def _scheme_keys(scheme: str, count: int, rng) -> Tuple[list, np.ndarray]:
+    """``count`` (private keys, [count, 64 or 32] uint8 public rows) of a
+    signature scheme, drawn from ``rng``."""
+    if scheme == "ecdsa-p256":
+        pairs = [hc.keygen(rng) for _ in range(count)]
+        return [d for d, _ in pairs], _pub_rows([q for _, q in pairs])
+    seeds = [rng.randbelow(1 << 256).to_bytes(32, "big") for _ in range(count)]
+    pubs = [hc.ed25519_keygen(seed)[1] for seed in seeds]
+    return seeds, np.frombuffer(b"".join(pubs), np.uint8).reshape(count, 32).copy()
+
+
+def _pub_of(scheme: str, row):
+    """A public-key row of ``scheme`` as the scheme's verify takes it."""
+    if scheme == "ecdsa-p256":
+        return pub_from_row(row)
+    return bytes(np.asarray(row, dtype=np.uint8))
+
+
 def make_test_keys(
-    n: int, n_clients: int = 1, usig_kind: str = "ecdsa", rng=None
+    n: int,
+    n_clients: int = 1,
+    usig_kind: str = "ecdsa",
+    rng=None,
+    scheme: str = "ecdsa-p256",
 ) -> dict:
     """Fresh key material for an n-replica testnet, as the plain dict
     :func:`authenticators_from_keys` takes.  ``rng`` (anything with
-    ``randbelow``, default :mod:`secrets`) makes it reproducible."""
+    ``randbelow``, default :mod:`secrets`) makes it reproducible;
+    ``scheme`` is the CLIENT/REPLICA signature scheme."""
+    _scheme(scheme)
     rng = rng or secrets
-    replica = [hc.keygen(rng) for _ in range(n)]
-    client = [hc.keygen(rng) for _ in range(n_clients)]
+    replica_priv, replica_pub = _scheme_keys(scheme, n, rng)
+    client_priv, client_pub = _scheme_keys(scheme, n_clients, rng)
     keys = {
         "n": n,
-        "replica_priv": [d for d, _ in replica],
-        "replica_pub": _pub_rows([q for _, q in replica]),
-        "client_priv": [d for d, _ in client],
-        "client_pub": _pub_rows([q for _, q in client]),
+        "scheme": scheme,
+        "replica_priv": replica_priv,
+        "replica_pub": replica_pub,
+        "client_priv": client_priv,
+        "client_pub": client_pub,
         "usig_kind": usig_kind,
         "usig_epoch": [
             rng.randbelow(1 << (8 * _EPOCH_LEN)).to_bytes(_EPOCH_LEN, "big")
@@ -631,9 +683,9 @@ def authenticators_from_keys(
     tofu_anchors: bool = False,
     client_engines: Optional[list] = None,
 ):
-    """Replica and client authenticators (``ecdsa-p256`` scheme) from a
-    dict of key material (see the layout above).  Returns
-    (replica_auths, client_auths).
+    """Replica and client authenticators from a dict of key material (see
+    the layout above; the signature scheme is ``keys["scheme"]``).
+    Returns (replica_auths, client_auths).
 
     ``engine`` is shared by every replica, or ``engines[i]`` is replica
     i's; ``client_engine`` serves every client (REPLY verification and
@@ -643,14 +695,16 @@ def authenticators_from_keys(
     instead of full pinned IDs, so the epoch trust-on-first-use
     machinery is exercised like a deployed keystore."""
     n = keys["n"]
-    replica_pubs = {i: pub_from_row(r) for i, r in enumerate(keys["replica_pub"])}
-    client_pubs = {i: pub_from_row(r) for i, r in enumerate(keys["client_pub"])}
+    scheme = keys.get("scheme", "ecdsa-p256")
+    replica_pubs = {i: _pub_of(scheme, r) for i, r in enumerate(keys["replica_pub"])}
+    client_pubs = {i: _pub_of(scheme, r) for i, r in enumerate(keys["client_pub"])}
     usigs = usigs_from_keys(keys)
     usig_ids = {i: u.id() for i, u in enumerate(usigs)}
     if tofu_anchors:
         usig_ids = {i: uid[_EPOCH_LEN:] for i, uid in usig_ids.items()}
     replica_auths = [
         SampleAuthenticator(
+            scheme=scheme,
             replica_priv=keys["replica_priv"][i],
             replica_pubs=replica_pubs,
             client_pubs=client_pubs,
@@ -663,6 +717,7 @@ def authenticators_from_keys(
     ]
     client_auths = [
         SampleAuthenticator(
+            scheme=scheme,
             client_priv=d,
             replica_pubs=replica_pubs,
             client_pubs=client_pubs,

@@ -4,15 +4,18 @@ JAX package's, on the CPU.
 1. A port cluster and a reference cluster (n = 4, f = 1, HMAC USIG, no
    engine) built from one key dict commit the same 3 serial requests of
    one client: the block digests the clients receive and the replicas'
-   final state digests are identical.
+   final state digests are identical, under ECDSA-P256 and Ed25519
+   client and replica signatures.
 2. A mixed cluster: 2 reference replicas and 2 port replicas on one set
    of in-process stubs commit the same requests from a port client and a
    reference client with equal ledgers, with either side holding the
-   primary (replica 0), under ECDSA and HMAC USIGs.
+   primary (replica 0), under ECDSA-P256 signatures with ECDSA and HMAC
+   USIGs and under Ed25519 signatures with HMAC USIGs.
 3. The cluster that chip_smoke.py drives on the card, at n = 3, f = 1,
    HMAC USIG, 1 request and 2 forged REQUESTs, on one shared CPU engine:
    its UI checks go through the plain K6 and its signature checks through
-   the plain K2.
+   the plain K2 (ECDSA-P256), or through the plain K7 with signing
+   through the plain K8 (Ed25519).
 4. A replica whose engine fails to sign its REPLY loses that REPLY and
    signs nothing on the host; the other replicas' REPLYs carry the
    client.
@@ -100,8 +103,7 @@ async def _commit(
     return replies, ledgers
 
 
-def test_port_cluster_commits_byte_identically_to_the_reference():
-    keys = make_test_keys(4, 1, "hmac", rng=_SeededRng(21))
+def _commit_port_and_reference_clusters(keys):
     ops = [[b"op-%d" % k for k in range(3)]]
     port_replies, port_ledgers = asyncio.run(_commit(range(4), keys, 1, ops, ["port"]))
     ref_replies, ref_ledgers = asyncio.run(_commit((), keys, 1, ops, ["ref"]))
@@ -113,10 +115,23 @@ def test_port_cluster_commits_byte_identically_to_the_reference():
         assert [led.block(h).payload for h in range(1, 4)] == ops[0]
 
 
-@pytest.mark.parametrize("usig_kind", ["ecdsa", "hmac"])
+def test_port_cluster_commits_byte_identically_to_the_reference():
+    _commit_port_and_reference_clusters(make_test_keys(4, 1, "hmac", rng=_SeededRng(21)))
+
+
+def test_port_cluster_commits_byte_identically_to_the_reference_under_ed25519():
+    keys = make_test_keys(4, 1, "hmac", rng=_SeededRng(25), scheme="ed25519")
+    _commit_port_and_reference_clusters(keys)
+
+
+@pytest.mark.parametrize("usig_kind,scheme", [
+    pytest.param("ecdsa", "ecdsa-p256", id="ecdsa"),
+    pytest.param("hmac", "ecdsa-p256", id="hmac"),
+    pytest.param("hmac", "ed25519", id="hmac-ed25519"),
+])
 @pytest.mark.parametrize("primary", ["port", "ref"])
-def test_mixed_cluster_commits_with_equal_ledgers(primary, usig_kind):
-    keys = make_test_keys(4, 2, usig_kind, rng=_SeededRng(22))
+def test_mixed_cluster_commits_with_equal_ledgers(primary, usig_kind, scheme):
+    keys = make_test_keys(4, 2, usig_kind, rng=_SeededRng(22), scheme=scheme)
     port_ids = (0, 1) if primary == "port" else (2, 3)
     ops = [[b"port-%d" % k for k in range(3)], [b"ref-%d" % k for k in range(3)]]
     replies, ledgers = asyncio.run(_commit(port_ids, keys, 1, ops, ["port", "ref"]))
@@ -150,6 +165,25 @@ def test_cluster_driver_on_a_shared_cpu_engine():
     assert hmac_q.items >= 2 and ecdsa_q.items >= 3
     for st in (hmac_q, ecdsa_q):
         assert st.dispatch_timeouts == 0
+
+
+def test_cluster_driver_on_a_shared_cpu_engine_under_ed25519():
+    keys = make_test_keys(3, 2, "hmac", rng=_SeededRng(26), scheme="ed25519")
+    engine = BatchVerifier(max_batch=8, buckets=(8,), device="cpu", sign_on_device=True)
+    assert authenticators_from_keys(keys, engine=engine)[0][0].supports_batch_verify
+    no_window = (lambda: None, lambda: None)
+    result = asyncio.run(chip_smoke.run_cluster(keys, 1, engine, 1, 1, 1, no_window, forged=2))
+    chip_smoke.check_cluster(result, "cpu cluster")
+    chip_smoke.check_engine(engine, "cpu cluster")
+    assert result["ledger_lengths"] == [1, 1, 1]
+    assert result["dropped"] == [2, 2, 2] and result["replies_to_forged"] == 0
+    hmac_q, ed_q = engine.stats["hmac_sha256"], engine.stats["ed25519"]
+    sign_q = engine.sign_stats["ed25519"]
+    # PREPARE and COMMIT UIs through the HMAC queue (plain K6), REQUEST and
+    # REPLY signatures checked through the Ed25519 queue (plain K7) and
+    # made through its sign queue (plain K8), none on the host.
+    assert hmac_q.items >= 2 and ed_q.items >= 3 and sign_q.items >= 3 + 2
+    assert "ecdsa_p256" not in engine.stats
 
 
 def test_failed_reply_signature_is_not_redone_on_the_host():

@@ -84,12 +84,15 @@ def test_codec_and_authen_bytes_are_byte_identical(kind):
 
 def _reference_authenticators(keys):
     """The reference's replica and client authenticators (host
-    verification, no engine) under the key dict ``keys``, with ECDSA or
-    HMAC USIGs (``keys["usig_kind"]``) carrying the same key, epoch and
+    verification, no engine) under the key dict ``keys``, with its
+    signature scheme (``keys["scheme"]``, ECDSA-P256 when absent) and ECDSA
+    or HMAC USIGs (``keys["usig_kind"]``) carrying the same key, epoch and
     counter as the port's."""
     n = keys["n"]
-    replica_pubs = {i: pub_from_row(r) for i, r in enumerate(keys["replica_pub"])}
-    client_pubs = {i: pub_from_row(r) for i, r in enumerate(keys["client_pub"])}
+    scheme = keys.get("scheme", "ecdsa-p256")
+    pub = pub_from_row if scheme == "ecdsa-p256" else bytes
+    replica_pubs = {i: pub(r) for i, r in enumerate(keys["replica_pub"])}
+    client_pubs = {i: pub(r) for i, r in enumerate(keys["client_pub"])}
     usigs = []
     for i in range(n):
         if keys["usig_kind"] == "ecdsa":
@@ -101,6 +104,7 @@ def _reference_authenticators(keys):
     usig_ids = {i: u.id() for i, u in enumerate(usigs)}
     replicas = [
         RefAuthenticator(
+            scheme=scheme,
             replica_priv=keys["replica_priv"][i], replica_pubs=replica_pubs,
             client_pubs=client_pubs, usig=usigs[i], usig_ids=usig_ids,
             own_replica_id=i,
@@ -108,7 +112,10 @@ def _reference_authenticators(keys):
         for i in range(n)
     ]
     clients = [
-        RefAuthenticator(client_priv=d, replica_pubs=replica_pubs, client_pubs=client_pubs)
+        RefAuthenticator(
+            scheme=scheme, client_priv=d, replica_pubs=replica_pubs,
+            client_pubs=client_pubs,
+        )
         for d in keys["client_priv"]
     ]
     return replicas, clients, usigs
@@ -256,8 +263,16 @@ def test_new_test_authenticators_host_path_and_unported_schemes():
         asyncio.run(
             replicas[1].verify_message_authen_tag(CLIENT, 0, ab, _tampered(tag))
         )
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        new_test_authenticators(4, scheme="ed25519")
+    # Ed25519 (host path): a client's tag verifies on a replica, a
+    # tampered one is rejected.
+    ed_replicas, ed_clients = new_test_authenticators(4, scheme="ed25519")
+    ed_tag = ed_clients[0].generate_message_authen_tag(CLIENT, ab)
+    assert len(ed_tag) == 64 and ed_tag != tag
+    asyncio.run(ed_replicas[1].verify_message_authen_tag(CLIENT, 0, ab, ed_tag))
+    with pytest.raises(api.AuthenticationError):
+        asyncio.run(
+            ed_replicas[1].verify_message_authen_tag(CLIENT, 0, ab, _tampered(ed_tag))
+        )
     # An HMAC USIG through an engine: its UI certificates are checked by
     # the engine's HMAC queue (the plain K6 here), not on the host.
     engine = BatchVerifier(device="cpu")
@@ -276,7 +291,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import minbft_tpu_torch as pkg\n"
         "import minbft_tpu_torch.core, minbft_tpu_torch.client\n"
         "import minbft_tpu_torch.sample.conn.inprocess, minbft_tpu_torch.sample.config\n"
-        "import minbft_tpu_torch.ops.hmac_sha256\n"
+        "import minbft_tpu_torch.ops.hmac_sha256, minbft_tpu_torch.ops.ed25519\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'minbft_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
