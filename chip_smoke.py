@@ -12,13 +12,16 @@ that does not hold:
 2. K1 (field library, ``field_op`` test kernel) against the plain
    PyTorch field ops, every op, mod the P-256 prime p, its order n and
    the Ed25519 prime 2^255 - 19, 4,096 random and edge elements, exact;
-3. K2 (batched ECDSA-P256 verify) at B = 512 and 16,384, each batch of
-   distinct rows signed afresh on the card, against the plain version on
-   every lane and against ``hostcrypto.ecdsa_verify_py`` on every honest
-   or plainly forged lane (B = 512) or on a sample of them (B = 16,384),
-   adversarial lanes included;
-4. K3 (fixed-base k·G) at B = 512 against the plain version, and
-   ``sign_batch`` signatures against ``hostcrypto.ecdsa_sign_py``;
+3. K2 (batched ECDSA-P256 verify) at B = 128 (cfg4's bucket), 512,
+   16,384 and 32,768 (the bench's batch), each batch of distinct rows
+   signed afresh on the card, against the plain version on every lane
+   (on the adversarial lanes and an even spread at 32,768) and against
+   ``hostcrypto.ecdsa_verify_py`` on every honest or plainly forged lane
+   (B <= 512) or on a sample of them, adversarial lanes included;
+4. K3 (fixed-base k·G) at B = 128, 512, 2,048 (the bench's sign batch
+   and sign-queue bucket) and 32,768 against the plain version (every
+   lane up to 2,048, an even spread above; k = 1, 2, n - 1 included),
+   and ``sign_batch`` signatures against ``hostcrypto.ecdsa_sign_py``;
 5. the authentication flow — the first slice's path — at n = 4, f = 1,
    4 clients, 512 requests: client REQUEST signing (K3), REQUEST, PREPARE
    and COMMIT verification (K2), REPLY signing (K3) and client REPLY
@@ -27,17 +30,21 @@ that does not hold:
    read just after;
 6. K5 (SHA-256 compression, ``sha256_compress`` test kernel) against the
    plain compression on 4,096 random (state, block) pairs, and K6
-   (HMAC-SHA256 verify) at B = 512 and 16,384 distinct rows against the
+   (HMAC-SHA256 verify) at B = 128, 512, 1,024 (the clusters' buckets),
+   8,192 (the bench's HMAC batch) and 16,384 distinct rows against the
    plain version and Python's ``hmac`` on every lane, with forged lanes
    (one flipped bit in the mac, the key or the message) and all-zero
    padding rows;
-7. K7 (batched Ed25519 verify) at B = 1,024 and 16,384 distinct rows,
+7. K7 (batched Ed25519 verify) at B = 1,024, 16,384 and 32,768 (the
+   bench's batch) distinct rows,
    honest lanes signed on the card, with adversarial lanes (tampered
    message, wrong key, bit-flipped R, S + L, non-canonical R with
    y >= p, undecodable public key, wrong-length signature) and all-zero
-   padding rows, against the plain version on every lane and against
+   padding rows, against the plain version on every lane (on the
+   adversarial lanes and an even spread at 32,768) and against
    ``hostcrypto.ed25519_verify_py`` on a sample; K8 (fixed-base r·B) at
-   B = 1,024 and 16,384, r = 0, 1 and L - 1 among the nonces, against
+   B = 1,024, 2,048 and 8,192 (the bench's sign-queue bucket and sign
+   batch) and 16,384, r = 0, 1 and L - 1 among the nonces, against
    the plain version bit for bit, and ``sign_batch`` signatures against
    ``hostcrypto.ed25519_sign``;
 8. cluster A, the main path: an in-process MinBFT cluster (replica core,
@@ -57,11 +64,37 @@ that does not hold:
    and host-signed lanes, no ERROR record may come from the core or the
    client, and the launch counters, zeroed just before the timed drive
    and read just after, must show the path's kernels;
-11. one JSON line of per-kernel numbers (launches, parity, times, bounds).
+11. K4 (the k·G ladder) at B = 512 and 16,384 on RFC 6979 nonces plus
+   k = 1, 2, n - 1 and a random k: the signing path through it (nonces,
+   K4, ``sign_finish``; its launch window) gives signatures
+   byte-identical to ``sign_finish`` on K3's (X, Z) on every lane and to
+   ``hostcrypto.ecdsa_sign_py`` on a sample, no lane has Z = 0, and
+   (X, Z) equals the plain ladder bit for bit on at least 64 lanes;
+12. the multi-array forms on the packed phases' rows, at the packed
+   sibling's bucket, 16,384 and the bench's batch (32,768; 8,192 for
+   HMAC): K2' (eight arrays) and K7' (seven) give K2's and K7's verdicts
+   on every lane and equal their plain versions on at least 64 lanes, the
+   adversarial ones included; K6' (three arrays) equals K6 and its plain
+   version, and K6s (MAC generation) Python's ``hmac`` and its plain
+   version, on every lane;
+13. the bench entry point, ``minbft_tpu_torch.bench.main``, in-process:
+   the kernel section at its default batches (32,768), then the ``mac``
+   (n = 7, 8,000 requests) and ``cfg4`` (n = 13, bucket 128, 3,000
+   requests) cluster configurations, one timed run each plus the traced
+   and SLO runs; each must exit 0 with every self-check passed, write
+   ``build/torch_bench/extras.json`` with the reference's keys for what
+   it ran, commit every request with no dispatch timed out and no
+   host-signed lane, log no ERROR record, and launch its path's kernels
+   in its window (K6 for ``mac``);
+14. one JSON line of per-kernel numbers (launches, parity, times, bounds).
 
+Each phase's start is printed with the seconds since the smoke began.
 Kernel times are CUDA-event medians: ``ms`` brackets one wrapper call
 (host launch overhead included), ``device_ms`` replays the kernel
-captured in a CUDA graph (the kernel alone).
+captured in a CUDA graph (the kernel alone).  Bounds count the integer
+multiply-add issues each function needs on the run's inputs (``k2_imads``
+and its siblings) or, for SHA-256, its ALU instructions, against the
+bytes it must move.
 
 The last line of standard output is the device JSON.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -71,7 +104,9 @@ and prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
+import io
 import json
 import logging
 import os
@@ -82,10 +117,24 @@ import time
 
 # Published H100 SXM memory rate (NVIDIA data sheet), for the byte bound.
 HBM_BYTES_PER_S = 3.35e12
-# A 32x32->64 multiply-add counted as two 32-bit IMAD issues (low and
-# high halves); a Montgomery multiply is 64 such products for a*b, 64 for
-# u*m and one 32-bit multiply for u.
-IMADS_PER_MONT_MUL = 2 * 128 + 1
+# IMAD issues of the least field ops mod the P-256 prime p (K1-K4),
+# counted as the functions need them: a product of two 8-word values is
+# 64 32x32->64 products (36 for a square), two issues each; the Montgomery
+# reduction by p needs none (-p^-1 mod 2^32 = 1, so u is the low word, and
+# p's words are 0, 1 and 2^32 - 1, so u*p is shifts and adds).
+P256_MUL = 2 * 64
+P256_SQR = 2 * 36
+# A multiply mod the group order n (K1's timed op): the reduction's u (a
+# 32-bit multiply) and u*n (8 products) per word.
+ORDER_MUL = 2 * 64 + 8 * (1 + 2 * 8)
+# Fermat inversion mod p by an addition chain for p - 2 (x^(2^32 - 1) in
+# 31 squarings and 5 multiplies, then the runs of p - 2's bits): 255
+# squarings, 13 multiplies.
+P256_INV = 255 * P256_SQR + 13 * P256_MUL
+# Doubling, a = -3 (dbl-2001-b): 3 multiplies, 5 squarings.  Mixed
+# Jacobian + affine addition (madd-2007-bl): 7 multiplies, 4 squarings.
+P256_DBL = 3 * P256_MUL + 5 * P256_SQR
+P256_MADD = 7 * P256_MUL + 4 * P256_SQR
 # IMAD issues of the least field ops mod m = 2^255 - 19 (K7, K8), counted
 # as the functions need them; every field op returns the unique fully
 # reduced value, so these give the kernels' bits.  A product of two 8-word
@@ -114,9 +163,11 @@ ED_ADD_IDENTITY = 3 * ED_MUL + ED_SQR
 # or as an IMAD on the FMA pipe.
 SHA256_ALU_OPS = 64 * (6 + 4) + 48 * (6 + 2)
 SHA256_ADD_OPS = 64 * 4 + 48 * 2 + 8
-# One K6 lane: four compressions, 16 LOP3 for the key pads, 8 LOP3 and
-# one ISETP for the compare with the mac.
+# One K6 (or K6') lane: four compressions, 16 LOP3 for the key pads, 8
+# LOP3 and one ISETP for the compare with the mac; a K6s lane has no
+# compare.
 HMAC_ALU_OPS = 4 * SHA256_ALU_OPS + 16 + 8 + 1
+HMAC_SIGN_ALU_OPS = 4 * SHA256_ALU_OPS + 16
 HMAC_ADD_OPS = 4 * SHA256_ADD_OPS
 # Requests of cluster phase A (the main path, n = 7).
 CLUSTER_A_REQUESTS = 10_000
@@ -127,6 +178,50 @@ CLUSTER_A_REQUESTS = 10_000
 CLUSTER_C_REQUESTS = 2_400
 # How long each cluster request may take before its phase fails.
 REQUEST_TIMEOUT_S = 120.0
+# Phase 13: the bench's sections that the smoke runs (the kernel section
+# at its default batches, and two cluster configurations at the bench's
+# default lengths, one timed run each); the other configurations' paths
+# are clusters A-C's.
+BENCH_SECTIONS = ("kernels", "mac", "cfg4")
+BENCH_REQUESTS = {"mac": 8000, "cfg4": 3000}
+
+
+def bench_expected_keys(section: str) -> set:
+    """The keys the reference's bench.py emits for ``section``'s functions
+    or configuration prefix (one timed run, the SLO run), less the ones it
+    emits only for the TPU (``*_mode``, the compile cache, ``last_tpu``).
+    The port's bench traces every configuration, so its ``_stage_`` and
+    ``_critpath_`` keys are checked apart."""
+    if section == "kernels":
+        keys = {"backend", "device", "uvloop", "hmac_batch", "hmac_verifies_per_sec",
+                "prep_batch", "ed25519_prep_batch", "ecdsa_sign_big_batch",
+                "ecdsa_sign_big_per_sec"}
+        for s in ("ecdsa", "ed25519"):
+            keys |= {f"{s}_prep_items_per_sec", f"{s}_prep_scalar_items_per_sec",
+                     f"{s}_prep_speedup", f"{s}_batch", f"{s}_ms_per_batch",
+                     f"{s}_verifies_per_sec", f"{s}_compile_s", f"{s}_sign_batch",
+                     f"{s}_signs_per_sec", f"{s}_sign_compile_s",
+                     f"{s}_device_signs_per_sec", f"{s}_sign_queue_mean_batch",
+                     f"{s}_sign_queue_compile_s", f"{s}_sign_queue_fallback"}
+        return keys
+    suffixes = {
+        "request_latency_p50_ms", "request_latency_p99_ms", "exec_latency_p50_ms",
+        "exec_latency_p99_ms", "messages_handled", "messages_dropped", "n", "f",
+        "clients", "requests", "committed_req_per_sec", "ingest_batch_mean",
+        "ingest_ticks_per_sec", "batched_verifies", "batches", "mean_batch",
+        "device_verifies_per_sec", "logical_verifies", "memo_hits",
+        "hmac_sha256_prep_share", "queue_depth_peak", "timeline", "req_per_sec_runs",
+        "req_per_sec_mean", "req_per_sec_stddev", "req_per_sec_at_p50_500ms",
+        "slo_depth", "slo_achieved_p50_ms", "slo_achieved_p99_ms", "util_busy",
+        "util_fill", "util_useful", "util_effective_per_sec", "util_per_device_per_sec",
+        "util_ceiling_per_sec", "util_ceiling_source", "util_idle_s",
+        "util_lanes_useful", "util_lanes_padding", "util_lanes_memo",
+        "util_lanes_fallback",
+    }
+    if section != "mac":  # signatures: the ECDSA verify and sign queues
+        suffixes |= {"ecdsa_p256_prep_share", "device_signs_per_sec", "sign_share",
+                     "sign_fallback_items", "queue_signs", "sign_prep_share"}
+    return {f"{section}_{s}" for s in suffixes}
 
 
 def int_mix(alu_ops: float, add_ops: float) -> float:
@@ -138,11 +233,76 @@ def int_mix(alu_ops: float, add_ops: float) -> float:
     return max(alu_ops, (alu_ops + add_ops) / 2)
 
 
+def _bits(limb_rows) -> "np.ndarray":
+    """[lanes, 16] u16 limbs -> [lanes, 256] bits, index j = bit j."""
+    import numpy as np
+
+    scalar = np.ascontiguousarray(limb_rows).astype("<u2")
+    return np.unpackbits(scalar.view(np.uint8), axis=1, bitorder="little")
+
+
+def _ladder_counts(nonzero) -> tuple:
+    """For [lanes, positions] nonzero digits of a top-down ladder: the
+    doublings (one per position below a lane's top nonzero digit) and the
+    adds (one per nonzero digit below it), summed over the lanes; the
+    top digit's entry is loaded, not added, and an all-zero lane needs
+    neither."""
+    import numpy as np
+
+    has = nonzero.any(axis=1)
+    top = nonzero.shape[1] - 1 - np.argmax(nonzero[:, ::-1], axis=1)
+    dbls = int(np.where(has, top, 0).sum())
+    adds = int(np.where(has, nonzero.sum(axis=1) - 1, 0).sum())
+    return dbls, adds
+
+
+def k2_imads(rows: "np.ndarray") -> int:
+    """IMAD issues that K2's (and K2''s) function needs on these [B, 98]
+    packed rows, summed over the lanes.  A lane with valid = 0 needs none
+    (its verdict is false).  A valid lane: Q into the Montgomery domain
+    (2 multiplies); G + Q from the two affine points (4 multiplies, 2
+    squarings) made affine by one inversion, a squaring and 3 multiplies;
+    from the top nonzero digit 2*bit(u1) + bit(u2) down, a doubling per
+    lower bit and a mixed add of Q, G or G + Q per nonzero digit; the
+    check X == r*Z^2 (a squaring, r into the domain, a multiply), and the
+    same for r2 where r2_ok is set."""
+    from minbft_tpu_torch.ops import p256
+
+    live = rows[rows[:, p256.PACKED_COLS - 1] != 0]
+    if not len(live):
+        return 0
+    digit = 2 * _bits(live[:, 32:48]).astype(int) + _bits(live[:, 48:64])
+    dbls, adds = _ladder_counts(digit != 0)
+    per_lane = (2 * P256_MUL + 4 * P256_MUL + 2 * P256_SQR + P256_INV + P256_SQR
+                + 3 * P256_MUL + P256_SQR + 2 * P256_MUL)
+    r2 = int((live[:, 96] != 0).sum()) * 2 * P256_MUL
+    return len(live) * per_lane + r2 + dbls * P256_DBL + adds * P256_MADD
+
+
+def k3_imads(k: "np.ndarray") -> int:
+    """IMAD issues that K3's function needs on these [B, 16] nonce limbs:
+    a mixed add of a table row per nonzero nibble window after a lane's
+    first nonzero one (whose row is loaded); zero windows need nothing."""
+    import numpy as np
+
+    nib = (k.astype(np.int64)[:, :, None] >> np.array([0, 4, 8, 12])) & 0xF
+    nonzero = nib.reshape(len(k), 64) != 0
+    return int(np.maximum(nonzero.sum(axis=1) - 1, 0).sum()) * P256_MADD
+
+
+def k4_imads(k: "np.ndarray") -> int:
+    """IMAD issues that K4's function needs on these [B, 16] nonce limbs:
+    from a lane's top 1-bit down, a doubling per lower bit and a mixed add
+    of G per 1-bit."""
+    dbls, adds = _ladder_counts(_bits(k) != 0)
+    return dbls * P256_DBL + adds * P256_MADD
+
+
 def k7_imads(rows: np.ndarray) -> int:
-    """IMAD issues that K7's function needs on these [B, 82] packed rows,
-    summed over the lanes.  A lane with valid = 0 needs none (its verdict
-    is false).  A valid lane: 12 multiplies of setup (A' into the
-    Montgomery domain, its T, B + A' as a mixed add, 2d*t of A' and of
+    """IMAD issues that K7's (and K7''s) function needs on these [B, 82]
+    packed rows, summed over the lanes.  A lane with valid = 0 needs none
+    (its verdict is false).  A valid lane: 12 multiplies of setup (A' into
+    the Montgomery domain, its T, B + A' as a mixed add, 2d*t of A' and of
     B + A'); from the top nonzero digit 2*bit(u1) + bit(u2) down, that
     digit's entry is loaded and every lower bit costs a doubling plus,
     for a nonzero digit, an add of A' or B (mixed) or B + A' (general);
@@ -156,12 +316,8 @@ def k7_imads(rows: np.ndarray) -> int:
     live = rows[rows[:, ed25519.PACKED_COLS - 1] != 0]
     if not len(live):
         return 0
-
-    def bits(col: int) -> np.ndarray:  # [lanes, 256], index j = bit j
-        scalar = np.ascontiguousarray(live[:, col : col + nl]).astype("<u2")
-        return np.unpackbits(scalar.view(np.uint8), axis=1, bitorder="little")
-
-    digit = 2 * bits(2 * nl).astype(np.int64) + bits(3 * nl)
+    u1, u2 = live[:, 2 * nl : 3 * nl], live[:, 3 * nl : 4 * nl]
+    digit = 2 * _bits(u1).astype(np.int64) + _bits(u2)
     nonzero = digit != 0
     has = nonzero.any(axis=1)
     top = 255 - np.argmax(nonzero[:, ::-1], axis=1)
@@ -188,6 +344,21 @@ def k8_imads(r: np.ndarray) -> int:
     zero_later = int((nib[:, 1:] == 0).sum())
     return (int((nib[:, 0] != 0).sum()) * ED_MUL
             + (nib[:, 1:].size - zero_later) * ED_MADD + zero_later * ED_ADD_IDENTITY)
+
+
+def spread(bsz: int, must) -> list:
+    """The lanes ``must`` plus an even spread, at least 64 in all."""
+    return sorted(set(must) | set(range(3, bsz, max(1, bsz // 64))))
+
+
+def kernel_entry(runs: dict, main: int, plain_ms: float, max_abs_err: int = 0) -> dict:
+    """A kernel's numbers for the kernels line from ``runs`` ({batch: (ms,
+    device ms, bound ms, bound by)}): those at ``main``, its deployment
+    bucket, and, under ``other``, those at every other batch it ran."""
+    ms, dev_ms, b_ms, b_by = runs[main]
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max_abs_err,
+                other={b: r for b, r in runs.items() if b != main})
 
 
 def fail(msg: str) -> None:
@@ -855,6 +1026,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from minbft_tpu_torch import bench
     from minbft_tpu_torch.ops import backend, ed25519, hmac_sha256, limbs, p256, sha256
     from minbft_tpu_torch.parallel import BatchVerifier
     from minbft_tpu_torch.sample.authentication import authenticators_from_keys
@@ -892,6 +1064,7 @@ def main() -> int:
 
     kernels = {}
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # -- phase 2: K1 -----------------------------------------------------------
     nk1 = 4096
     k1_err = 0
@@ -913,16 +1086,21 @@ def main() -> int:
     k1_ms = cuda_ms(torch, lambda: limbs.field_op("mul", a, b, "n"))
     k1_dev_ms = graph_ms(torch, lambda: limbs.field_op("mul", a, b, "n"))
     k1_plain_ms = cuda_ms(torch, lambda: limbs.mont_mul(p256.ORDER, a64, b64), reps=5)
-    k1_bound, k1_by = bound(nk1 * IMADS_PER_MONT_MUL, nk1 * 3 * 32)
+    k1_bound, k1_by = bound(nk1 * ORDER_MUL, nk1 * 3 * 32)
     kernels["K1"] = dict(ms=k1_ms, device_ms=k1_dev_ms, plain_ms=k1_plain_ms,
                          bound_ms=k1_bound, bound_by=k1_by, max_abs_err=k1_err)
     print(f"K1 mont_mul B={nk1}: {k1_ms:.4f} ms per call, {k1_dev_ms:.4f} ms on the "
           f"device (plain {k1_plain_ms:.3f} ms, bound {k1_bound:.5f} ms by {k1_by})")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
     # -- phase 3: K2 -----------------------------------------------------------
     keys = [hc.keygen(rng) for _ in range(8)]
     k2 = {}
-    for bsz in (512, 16384):
+    # The phase's rows and verdicts, which phase 12 feeds to K2'.
+    k2_runs = {}
+    # cfg4's bucket, the deployment bucket, a large batch and the bench's
+    # verify batch (K2' runs there; phase 12 holds it to these rows).
+    for bsz in (bench.CFG4_BUCKET, 512, 16384, bench.BATCH):
         # Distinct rows at each size: fresh digests, signed on the card.
         items = verify_items(hc, rng, keys, bsz)
         crafted = set(range(12, bsz, 64))
@@ -932,17 +1110,23 @@ def main() -> int:
         rows_d = torch.from_numpy(rows).to(dev)
         got = p256.ecdsa_verify_kernel_packed(rows_d)
         torch.cuda.synchronize()
-        want = p256.verify_packed_plain(rows_d)
-        mism = int((got != want).sum())
+        # The plain version on every lane up to 16,384; at the bench's
+        # batch on the crafted and adversarial lanes and an even spread
+        # (every plain call costs seconds, whatever its width).
+        sub = (slice(None) if bsz <= 16384 else
+               spread(bsz, [0, 1, 2] + sorted(crafted)[:8] + list(range(8, bsz, 16))[:24]))
+        # (CUDA has no uint16 gather: the lanes are picked on the host.)
+        want = p256.verify_packed_plain(torch.from_numpy(rows[sub]).to(dev))
+        mism = int((got[sub] != want).sum())
         check(mism == 0, f"K2 B={bsz}: {mism} lanes differ from the plain version")
         got_np = got.cpu().numpy()
-        # The host oracle is pure Python: every lane at 512, a spread
-        # sample (a prime stride, so it meets every lane residue) at 16,384.
+        # The host oracle is pure Python: every lane up to 512, a spread
+        # sample (a prime stride, so it meets every lane residue) above.
         # Lanes 0-2 (Q = G, -G, 2G) are left to the plain version: their
         # ladders can meet the incomplete add's exceptional case, which
         # the reference (and so the port) rejects even for an honest
         # signature.
-        oracle = range(bsz) if bsz == 512 else range(5, bsz, 37)
+        oracle = range(bsz) if bsz <= 512 else range(5, bsz, 37 if bsz <= 16384 else 73)
         oracle = [i for i in oracle if i > 2 and i not in crafted]
         host = {i: hc.ecdsa_verify_py(*items[i]) for i in oracle}
         check(sum(host.values()) > len(host) // 2, f"K2 B={bsz}: too few honest lanes")
@@ -951,52 +1135,61 @@ def main() -> int:
                 fail(f"K2 B={bsz} lane {i}: kernel {bool(got_np[i])} != host {ok}")
         ms = cuda_ms(torch, lambda: p256.ecdsa_verify_kernel_packed(rows_d))
         dev_ms = graph_ms(torch, lambda: p256.ecdsa_verify_kernel_packed(rows_d), copies=5)
-        k2[bsz] = (ms, dev_ms)
-        print(f"K2 B={bsz}: verdicts equal plain on every lane and host on "
+        imads = k2_imads(rows)
+        b_ms, b_by = bound(imads, bsz * (p256.PACKED_COLS * 2 + 1))
+        k2[bsz] = (ms, dev_ms, b_ms, b_by)
+        k2_runs[bsz] = (rows, got_np, sorted(crafted))
+        n_plain = bsz if bsz <= 16384 else len(sub)
+        print(f"K2 B={bsz}: verdicts equal plain on {n_plain} lanes and host on "
               f"{len(host)} honest/forged lanes ({int(got_np.sum())} accepted); "
               f"{ms:.3f} ms per batch ({dev_ms:.3f} on the device), "
-              f"{bsz / ms * 1e3:,.0f} verifies/s")
+              f"{bsz / ms * 1e3:,.0f} verifies/s, bound {b_ms:.4f} ms by {b_by} "
+              f"({imads / bsz:,.0f} IMAD issues per lane)")
         if bsz == 512:
             plain_ms = cuda_ms(
                 torch, lambda: p256.verify_packed_plain(rows_d), reps=1, warm=1
             )
-    # Field multiplies per lane, from the kernel: 2 to_mont of Q, the G+Q
-    # madd (11), the Fermat inversion (256 squarings + popcount(p-2)
-    # multiplies), 4 to make G+Q affine, 256 ladder steps of dbl (8) +
-    # madd (11), and 5 for the final check.
-    inv_mults = 256 + bin(p256.P - 2).count("1")
-    k2_mults = 2 + 11 + inv_mults + 4 + 256 * 19 + 5
-    k2_bound, k2_by = bound(512 * k2_mults * IMADS_PER_MONT_MUL, 512 * (98 * 2 + 1))
-    kernels["K2"] = dict(ms=k2[512][0], device_ms=k2[512][1], plain_ms=plain_ms,
-                         bound_ms=k2_bound, bound_by=k2_by, max_abs_err=0,
-                         ms_16384=k2[16384][0], device_ms_16384=k2[16384][1],
-                         field_mults_per_lane=k2_mults)
-    print(f"K2 bound B=512: {k2_bound:.4f} ms by {k2_by} "
-          f"({k2_mults} field multiplies per lane); plain {plain_ms:.1f} ms")
+    kernels["K2"] = kernel_entry(k2, 512, plain_ms)
+    print(f"K2 plain B=512: {plain_ms:.1f} ms")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # -- phase 4: K3 -----------------------------------------------------------
-    nonces = [rng.randbelow(p256.N - 1) + 1 for _ in range(512)]
-    k_d = torch.from_numpy(limbs.to_limbs_batch(nonces).astype(np.uint16)).to(dev)
-    got = p256.ecdsa_kg_kernel(k_d).to(torch.int64)
-    want = p256.kg_plain(k_d, p256.comb_table_limbs().to(dev))
-    err = int((got - want).abs().max())
-    check(err == 0, f"K3: kernel != plain (max |err| {err})")
-    sign_items = [(keys[i % len(keys)][0], rng.bytes(32)) for i in range(512)]
-    sigs = p256.sign_batch(sign_items, bucket=512)
-    for i in range(0, 512, 16):
-        d, dg = sign_items[i]
-        check(sigs[i] == hc.ecdsa_sign_py(d, dg), f"K3: signature {i} != host")
-    k3_ms = cuda_ms(torch, lambda: p256.ecdsa_kg_kernel(k_d))
-    k3_dev_ms = graph_ms(torch, lambda: p256.ecdsa_kg_kernel(k_d))
+    k3 = {}
     table_d = p256.comb_table_limbs().to(dev)
-    k3_plain_ms = cuda_ms(torch, lambda: p256.kg_plain(k_d, table_d), reps=2, warm=1)
-    k3_bound, k3_by = bound(512 * 64 * 11 * IMADS_PER_MONT_MUL, 512 * (32 + 64) + 65536)
-    kernels["K3"] = dict(ms=k3_ms, device_ms=k3_dev_ms, plain_ms=k3_plain_ms,
-                         bound_ms=k3_bound, bound_by=k3_by, max_abs_err=err)
-    print(f"K3 B=512: (X, Z) equal plain; 32 signatures byte-identical to host; "
-          f"{k3_ms:.3f} ms per batch ({k3_dev_ms:.3f} on the device; plain "
-          f"{k3_plain_ms:.1f} ms, bound {k3_bound:.4f} ms by {k3_by})")
+    # cfg4's bucket, the deployment bucket, the bench's sign batch and
+    # sign-queue bucket, and its large sign batch.
+    for bsz in (bench.CFG4_BUCKET, 512, bench.SIGN_BATCH, bench.BATCH):
+        nonces = [1, 2, p256.N - 1] + [rng.randbelow(p256.N - 1) + 1
+                                       for _ in range(bsz - 3)]
+        k_d = torch.from_numpy(limbs.to_limbs_batch(nonces).astype(np.uint16)).to(dev)
+        got = p256.ecdsa_kg_kernel(k_d).to(torch.int64)
+        torch.cuda.synchronize()
+        # The plain version on every lane up to the sign batch, on an even
+        # spread (k = 1, 2, n - 1 included) at the large one.
+        sub = slice(None) if bsz <= bench.SIGN_BATCH else spread(bsz, [0, 1, 2])
+        want = p256.kg_plain(k_d.to(torch.int64)[sub], table_d)
+        err = int((got[sub] - want).abs().max())
+        check(err == 0, f"K3 B={bsz}: kernel != plain (max |err| {err})")
+        sign_items = [(keys[i % len(keys)][0], rng.bytes(32)) for i in range(bsz)]
+        sigs = p256.sign_batch(sign_items, bucket=bsz)
+        host = range(0, bsz, max(1, bsz // 32))
+        for i in host:
+            d, dg = sign_items[i]
+            check(sigs[i] == hc.ecdsa_sign_py(d, dg), f"K3 B={bsz}: signature {i} != host")
+        ms = cuda_ms(torch, lambda: p256.ecdsa_kg_kernel(k_d))
+        dev_ms = graph_ms(torch, lambda: p256.ecdsa_kg_kernel(k_d))
+        b_ms, b_by = bound(k3_imads(k_d.cpu().numpy()), bsz * (32 + 64) + 65536)
+        k3[bsz] = (ms, dev_ms, b_ms, b_by)
+        n_plain = bsz if bsz <= bench.SIGN_BATCH else len(sub)
+        print(f"K3 B={bsz}: (X, Z) equal plain on {n_plain} lanes (k = 1, 2, n-1 "
+              f"included); {len(host)} signatures byte-identical to host; {ms:.3f} ms "
+              f"per batch ({dev_ms:.3f} on the device), bound {b_ms:.4f} ms by {b_by}")
+        if bsz == 512:
+            k3_plain_ms = cuda_ms(torch, lambda: p256.kg_plain(k_d, table_d), reps=2, warm=1)
+    kernels["K3"] = kernel_entry(k3, 512, k3_plain_ms)
+    print(f"K3 plain B=512: {k3_plain_ms:.1f} ms")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
     # -- phase 5: the authentication flow (main path) --------------------------
     n, f, n_clients, n_requests = 4, 1, 4, 512
     flow_keys = {
@@ -1029,6 +1222,11 @@ def main() -> int:
         "K6": hmac_sha256.hmac_verify_kernel_packed,
         "K7": ed25519.ed25519_verify_kernel_packed,
         "K8": ed25519.ed25519_rb_kernel,
+        "K4": p256.ecdsa_kg_ladder_kernel,
+        "K2'": p256.ecdsa_verify_kernel,
+        "K6'": hmac_sha256.hmac_verify_kernel,
+        "K6s": hmac_sha256.hmac_sign_kernel,
+        "K7'": ed25519.ed25519_verify_kernel,
     }
 
     def reset_counts():
@@ -1061,6 +1259,7 @@ def main() -> int:
           f"{flow_s:.2f} s wall, {result['committed_requests'] / flow_s:,.1f} "
           f"committed requests/s, launches {launches}")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 6")
     # -- phase 6: K5 and K6 -----------------------------------------------------
     np_rng = np.random.default_rng(20261017)
     nk5 = 4096
@@ -1087,7 +1286,10 @@ def main() -> int:
           f"{k5_plain_ms:.3f} ms, bound {k5_bound:.5f} ms by {k5_by})")
 
     k6 = {}
-    for bsz in (512, 16384):
+    k6_runs = {}  # rows, verdicts and forged lanes, for phase 12
+    # cfg4's bucket, the deployment bucket, cluster C's bucket, the
+    # bench's HMAC batch (K6' and K6s run there) and a large batch.
+    for bsz in (bench.CFG4_BUCKET, 512, 1024, bench.HMAC_BATCH, 16384):
         rows, expect, forged_idx = hmac_rows(np_rng, bsz)
         live = rows[rows.any(axis=1)]
         check(len({r.tobytes() for r in live}) == len(live), f"K6 B={bsz}: rows repeat")
@@ -1101,6 +1303,7 @@ def main() -> int:
         bad = np.nonzero(got_np != expect)[0]
         check(len(bad) == 0, f"K6 B={bsz}: lanes {bad[:8].tolist()} differ from Python hmac")
         check(not got_np[forged_idx].any(), f"K6 B={bsz}: a forged lane accepted")
+        k6_runs[bsz] = (rows, got_np, forged_idx)
         ms = cuda_ms(torch, lambda: hmac_sha256.hmac_verify_kernel_packed(rows_d))
         dev_ms = graph_ms(torch, lambda: hmac_sha256.hmac_verify_kernel_packed(rows_d))
         b_ms, b_by = bound(bsz * int_mix(HMAC_ALU_OPS, HMAC_ADD_OPS),
@@ -1115,15 +1318,17 @@ def main() -> int:
             k6_plain_ms = cuda_ms(
                 torch, lambda: hmac_sha256.hmac_verify_plain(rows_d), reps=3, warm=1
             )
-    kernels["K6"] = dict(ms=k6[512][0], device_ms=k6[512][1], plain_ms=k6_plain_ms,
-                         bound_ms=k6[512][2], bound_by=k6[512][3], max_abs_err=0,
-                         ms_16384=k6[16384][0], device_ms_16384=k6[16384][1])
+    kernels["K6"] = kernel_entry(k6, 512, k6_plain_ms)
     print(f"K6 plain B=512: {k6_plain_ms:.1f} ms")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     # -- phase 7: K7 and K8 ----------------------------------------------------------
     ed_seeds = [rng.bytes(32) for _ in range(8)]
     k7 = {}
-    for bsz in (1024, 16384):
+    k7_runs = {}  # rows and verdicts, for phase 12
+    # Cluster C's bucket, a large batch and the bench's verify batch (K7'
+    # runs there; phase 12 holds it to these rows).
+    for bsz in (1024, 16384, bench.BATCH):
         # Distinct rows at each size (fresh messages, signed on the card);
         # the last 8 rows are engine padding (all zero, valid = 0).
         items = ed25519_items(hc, rng, ed_seeds, bsz - 8)
@@ -1133,16 +1338,21 @@ def main() -> int:
         rows_d = torch.from_numpy(rows).to(dev)
         got = ed25519.ed25519_verify_kernel_packed(rows_d)
         torch.cuda.synchronize()
-        want = ed25519.verify_packed_plain(rows_d)
-        mism = int((got != want).sum())
+        adversarial = list(range(8, bsz - 8, 16))
+        # The plain version on every lane up to 16,384; at the bench's
+        # batch on the adversarial and padding lanes and an even spread.
+        sub = (slice(None) if bsz <= 16384 else
+               spread(bsz, adversarial[:28] + list(range(bsz - 8, bsz))))
+        want = ed25519.verify_packed_plain(torch.from_numpy(rows[sub]).to(dev))
+        mism = int((got[sub] != want).sum())
         check(mism == 0, f"K7 B={bsz}: {mism} lanes differ from the plain version")
         got_np = got.cpu().numpy()
         check(not got_np[bsz - 8:].any(), f"K7 B={bsz}: a padding row accepted")
-        adversarial = list(range(8, bsz - 8, 16))
         check(not got_np[adversarial].any(), f"K7 B={bsz}: an adversarial lane accepted")
+        k7_runs[bsz] = (rows, got_np)
         # The host oracle is pure Python: a spread sample (a prime stride)
         # plus the first two adversarial lanes of each kind.
-        oracle = sorted(set(range(3, bsz - 8, 7 if bsz == 1024 else 97))
+        oracle = sorted(set(range(3, bsz - 8, {1024: 7, 16384: 97}.get(bsz, 193)))
                         | set(adversarial[:14]))
         host = {i: hc.ed25519_verify_py(*items[i]) for i in oracle}
         check(sum(host.values()) > len(host) // 2, f"K7 B={bsz}: too few honest lanes")
@@ -1155,7 +1365,8 @@ def main() -> int:
         imads = k7_imads(rows)
         b_ms, b_by = bound(imads, bsz * (ed25519.PACKED_COLS * 2 + 1))
         k7[bsz] = (ms, dev_ms, b_ms, b_by)
-        print(f"K7 B={bsz}: verdicts equal plain on every lane and host on "
+        n_plain = bsz if bsz <= 16384 else len(sub)
+        print(f"K7 B={bsz}: verdicts equal plain on {n_plain} lanes and host on "
               f"{len(host)} lanes ({int(got_np.sum())} accepted, {len(adversarial)} "
               f"adversarial, 8 zero rows); {ms:.3f} ms per batch ({dev_ms:.3f} on the "
               f"device, {bsz / dev_ms * 1e3:,.0f} verifies/s), bound {b_ms:.4f} ms by {b_by} "
@@ -1164,15 +1375,14 @@ def main() -> int:
             k7_plain_ms = cuda_ms(
                 torch, lambda: ed25519.verify_packed_plain(rows_d), reps=1, warm=1
             )
-    kernels["K7"] = dict(ms=k7[1024][0], device_ms=k7[1024][1], plain_ms=k7_plain_ms,
-                         bound_ms=k7[1024][2], bound_by=k7[1024][3], max_abs_err=0,
-                         ms_16384=k7[16384][0], device_ms_16384=k7[16384][1],
-                         bound_ms_16384=k7[16384][2])
+    kernels["K7"] = kernel_entry(k7, 1024, k7_plain_ms)
     print(f"K7 plain B=1024: {k7_plain_ms:.1f} ms")
 
     k8 = {}
     table_d = ed25519.comb_table_limbs().to(dev)
-    for bsz in (1024, 16384):
+    # Cluster C's bucket, the bench's sign-queue bucket and sign batch,
+    # and a large batch.
+    for bsz in (1024, bench.SIGN_QUEUE_BUCKET, bench.ED_SIGN_BATCH, 16384):
         nonces = [0, 1, ed25519.L - 1] + [rng.randbelow(ed25519.L) for _ in range(bsz - 3)]
         r_np = limbs.to_limbs_batch(nonces).astype(np.uint16)
         r_d = torch.from_numpy(r_np).to(dev)
@@ -1196,13 +1406,11 @@ def main() -> int:
     sigs = ed25519.sign_batch(sign_items, bucket=1024)
     for i in range(0, 1024, 4):
         check(sigs[i] == hc.ed25519_sign(*sign_items[i]), f"K8: signature {i} != host")
-    kernels["K8"] = dict(ms=k8[1024][0], device_ms=k8[1024][1], plain_ms=k8_plain_ms,
-                         bound_ms=k8[1024][2], bound_by=k8[1024][3], max_abs_err=0,
-                         ms_16384=k8[16384][0], device_ms_16384=k8[16384][1],
-                         bound_ms_16384=k8[16384][2])
+    kernels["K8"] = kernel_entry(k8, 1024, k8_plain_ms)
     print(f"K8 plain B=1024: {k8_plain_ms:.1f} ms; 256 sign_batch signatures "
           f"byte-identical to hostcrypto.ed25519_sign")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 8")
     # -- phases 8 to 10: the in-process clusters -----------------------------------
     cluster_phases = (
         # (label, n, f, signature scheme, usig kind, bucket, clients, depth,
@@ -1248,7 +1456,238 @@ def main() -> int:
               f"forged {nforged} (replies {res['replies_to_forged']}, dropped "
               f"{min(dropped)}-{max(dropped)} per replica), launches {win}")
 
-    # -- phase 11 ----------------------------------------------------------------
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 11")
+    # -- phase 11: K4 and the signing path through it -----------------------------
+    k4 = {}
+    ladder_window = {}
+    for bsz in (512, 16384):
+        # RFC 6979 nonces of bsz - 4 items, then k = 1, 2, n - 1 and one
+        # random k < n (their (d, z, k) written into sign_finish's meta).
+        items = [(keys[i % len(keys)][0], rng.bytes(32)) for i in range(bsz - 4)]
+        k_np, meta_k = p256.sign_prepare(items, bsz)
+        extra_k = [1, 2, p256.N - 1, rng.randbelow(p256.N - 1) + 1]
+        k_np[bsz - 4:] = limbs.to_limbs_batch(extra_k)
+        extra = [(keys[0][0], rng.bytes(32)) for _ in extra_k]
+        all_items = items + extra
+        meta_k = meta_k + [(d, int.from_bytes(dg, "big") % p256.N, k)
+                           for (d, dg), k in zip(extra, extra_k)]
+        reset_counts()
+        # The signing path through K4: every count moves only from here ...
+        k_d = torch.from_numpy(k_np).to(dev)
+        xz4 = p256.ecdsa_kg_ladder_kernel(k_d).cpu().numpy()
+        sigs4 = p256.sign_finish(all_items, meta_k, xz4)
+        # ... to here.
+        for kid, v in read_counts().items():
+            ladder_window[kid] = ladder_window.get(kid, 0) + v
+        check(bool((xz4[:, 1] != 0).any(axis=1).all()),
+              f"K4 B={bsz}: a lane has Z = 0 (it would go to the host signer)")
+        sigs3 = p256.sign_finish(all_items, meta_k, p256.ecdsa_kg_kernel(k_d).cpu().numpy())
+        bad = [i for i in range(bsz) if sigs4[i] != sigs3[i]]
+        check(not bad, f"K4 B={bsz}: signatures differ from K3's on lanes {bad[:8]}")
+        host = range(0, bsz - 4, max(1, (bsz - 4) // 24))
+        for i in host:
+            check(sigs4[i] == hc.ecdsa_sign_py(*items[i]),
+                  f"K4 B={bsz}: signature {i} != host")
+        sub = sorted(set(range(0, bsz - 4, (bsz - 4) // 60)) | set(range(bsz - 4, bsz)))
+        want = p256.kg_ladder_plain(k_d.to(torch.int64)[sub])
+        err = int((torch.from_numpy(xz4.astype(np.int64))[sub].to(dev) - want).abs().max())
+        check(err == 0, f"K4 B={bsz}: kernel != plain on {len(sub)} lanes (max |err| {err})")
+        ms = cuda_ms(torch, lambda: p256.ecdsa_kg_ladder_kernel(k_d))
+        dev_ms = graph_ms(torch, lambda: p256.ecdsa_kg_ladder_kernel(k_d), copies=5)
+        imads = k4_imads(k_np)
+        b_ms, b_by = bound(imads, bsz * (32 + 64))
+        k4[bsz] = (ms, dev_ms, b_ms, b_by)
+        print(f"K4 B={bsz}: (X, Z) equal plain on {len(sub)} lanes (k = 1, 2, n-1 "
+              f"included), no Z = 0; signatures byte-identical to K3's on every lane "
+              f"and to host on {len(host)}; {ms:.3f} ms per batch ({dev_ms:.3f} on the "
+              f"device), bound {b_ms:.4f} ms by {b_by} ({imads / bsz:,.0f} IMAD issues "
+              f"per lane)")
+        if bsz == 512:
+            k4_plain_ms = cuda_ms(torch, lambda: p256.kg_ladder_plain(k_d), reps=1, warm=0)
+    path_launches["sign_ladder"] = ladder_window
+    check(ladder_window["K4"] > 0, f"sign_ladder: K4 was not launched {ladder_window}")
+    kernels["K4"] = kernel_entry(k4, 512, k4_plain_ms)
+    print(f"K4 plain B=512: {k4_plain_ms:.1f} ms")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 12")
+    # -- phase 12: the multi-array forms on the packed phases' rows ----------------
+    # Each form at its packed sibling's deployment bucket, a large batch
+    # and the bench's batch (the shapes the bench launches it at).
+    L = limbs.NLIMBS
+    runs = {}
+    for bsz in (512, 16384, bench.BATCH):
+        rows, packed_np, crafted = k2_runs[bsz]
+        arrays = [rows[:, k * L : (k + 1) * L].astype(np.uint32) for k in range(6)]
+        arrays += [rows[:, 6 * L] != 0, rows[:, 6 * L + 1] != 0]
+        ta = limbs.arrays_to(arrays, dev)
+        got = p256.ecdsa_verify_kernel(*ta)
+        torch.cuda.synchronize()
+        got_np = got.cpu().numpy()
+        bad = np.nonzero(got_np != packed_np)[0]
+        check(len(bad) == 0, f"K2' B={bsz}: lanes {bad[:8].tolist()} differ from K2")
+        sub = spread(bsz, [0, 1, 2] + crafted[:8] + list(range(8, bsz, 16))[:24])
+        want = p256.verify_plain(*(t[sub] for t in ta))
+        mism = int((got[sub] != want).sum())
+        check(mism == 0, f"K2' B={bsz}: {mism} of {len(sub)} lanes differ from plain")
+        ms = cuda_ms(torch, lambda: p256.ecdsa_verify_kernel(*ta))
+        dev_ms = graph_ms(torch, lambda: p256.ecdsa_verify_kernel(*ta), copies=5)
+        b_ms, b_by = bound(k2_imads(rows), bsz * (6 * L * 4 + 2 + 1))
+        runs[bsz] = (ms, dev_ms, b_ms, b_by)
+        print(f"K2' B={bsz}: verdicts equal K2's on every lane and plain on {len(sub)} "
+              f"(Q = G, -G, 2G, r2 and adversarial lanes included); {ms:.3f} ms per batch "
+              f"({dev_ms:.3f} on the device), bound {b_ms:.4f} ms by {b_by}")
+        if bsz == 512:
+            plain_ms = cuda_ms(torch, lambda: p256.verify_plain(*ta), reps=1, warm=0)
+    kernels["K2'"] = kernel_entry(runs, 512, plain_ms)
+
+    runs = {}
+    for bsz in (1024, 16384, bench.BATCH):
+        rows, packed_np = k7_runs[bsz]
+        arrays = [rows[:, k * L : (k + 1) * L].astype(np.uint32) for k in range(5)]
+        arrays += [rows[:, 5 * L].astype(np.uint32), rows[:, 5 * L + 1] != 0]
+        te = limbs.arrays_to(arrays, dev)
+        got = ed25519.ed25519_verify_kernel(*te)
+        torch.cuda.synchronize()
+        got_np = got.cpu().numpy()
+        bad = np.nonzero(got_np != packed_np)[0]
+        check(len(bad) == 0, f"K7' B={bsz}: lanes {bad[:8].tolist()} differ from K7")
+        sub = spread(bsz, list(range(8, bsz - 8, 16))[:28] + list(range(bsz - 8, bsz)))
+        want = ed25519.verify_plain(*(t[sub] for t in te))
+        mism = int((got[sub] != want).sum())
+        check(mism == 0, f"K7' B={bsz}: {mism} of {len(sub)} lanes differ from plain")
+        ms = cuda_ms(torch, lambda: ed25519.ed25519_verify_kernel(*te))
+        dev_ms = graph_ms(torch, lambda: ed25519.ed25519_verify_kernel(*te), copies=5)
+        b_ms, b_by = bound(k7_imads(rows), bsz * (5 * L * 4 + 4 + 1 + 1))
+        runs[bsz] = (ms, dev_ms, b_ms, b_by)
+        print(f"K7' B={bsz}: verdicts equal K7's on every lane and plain on {len(sub)} "
+              f"(adversarial and zero rows included); {ms:.3f} ms per batch ({dev_ms:.3f} "
+              f"on the device), bound {b_ms:.4f} ms by {b_by}")
+        if bsz == 1024:
+            plain_ms = cuda_ms(torch, lambda: ed25519.verify_plain(*te), reps=1, warm=0)
+    kernels["K7'"] = kernel_entry(runs, 1024, plain_ms)
+
+    import hmac as py_hmac
+
+    runs, sign_runs = {}, {}
+    for bsz in (512, bench.HMAC_BATCH, 16384):
+        rows, packed_np, forged_idx = k6_runs[bsz]
+        kk, mm, mc = (sha256.as_i32(np.ascontiguousarray(rows[:, a : a + 8])).to(dev)
+                      for a in (0, 8, 16))
+        got = hmac_sha256.hmac_verify_kernel(kk, mm, mc)
+        torch.cuda.synchronize()
+        check(bool((got.cpu().numpy() == packed_np).all()), f"K6' B={bsz}: differs from K6")
+        check(bool((got == hmac_sha256.hmac_verify_plain3(kk, mm, mc)).all()),
+              f"K6' B={bsz}: differs from plain")
+        macs = hmac_sha256.hmac_sign_kernel(kk, mm)
+        torch.cuda.synchronize()
+        want = np.stack([
+            np.frombuffer(py_hmac.new(r[:8].astype(">u4").tobytes(),
+                                      r[8:16].astype(">u4").tobytes(),
+                                      hashlib.sha256).digest(), ">u4").astype(np.uint32)
+            for r in rows
+        ])
+        check(np.array_equal(sha256.as_u32(macs), want), f"K6s B={bsz}: MACs != Python hmac")
+        plain_macs = hmac_sha256.hmac_sign_plain(kk, mm)
+        check(bool(((macs.to(torch.int64) & 0xFFFFFFFF) == plain_macs).all()),
+              f"K6s B={bsz}: MACs != plain")
+        for kid, fn, table, ops, nbytes in (
+            ("K6'", lambda: hmac_sha256.hmac_verify_kernel(kk, mm, mc), runs,
+             int_mix(HMAC_ALU_OPS, HMAC_ADD_OPS), 96 + 1),
+            ("K6s", lambda: hmac_sha256.hmac_sign_kernel(kk, mm), sign_runs,
+             int_mix(HMAC_SIGN_ALU_OPS, HMAC_ADD_OPS), 64 + 32),
+        ):
+            ms, dev_ms = cuda_ms(torch, fn), graph_ms(torch, fn)
+            b_ms, b_by = bound(bsz * ops, bsz * nbytes)
+            table[bsz] = (ms, dev_ms, b_ms, b_by)
+            print(f"{kid} B={bsz}: {ms:.4f} ms per call, {dev_ms:.4f} ms on the device, "
+                  f"bound {b_ms:.5f} ms by {b_by}")
+        print(f"K6'/K6s B={bsz}: verdicts equal K6's and plain on every lane "
+              f"({len(forged_idx)} forged, 8 zero rows); MACs equal Python hmac and "
+              f"plain on every lane")
+        if bsz == 512:
+            k6v_plain = cuda_ms(torch, lambda: hmac_sha256.hmac_verify_plain3(kk, mm, mc),
+                                reps=3, warm=1)
+            k6s_plain = cuda_ms(torch, lambda: hmac_sha256.hmac_sign_plain(kk, mm),
+                                reps=3, warm=1)
+    kernels["K6'"] = kernel_entry(runs, 512, k6v_plain)
+    kernels["K6s"] = kernel_entry(sign_runs, 512, k6s_plain)
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 13")
+    # -- phase 13: the bench entry point, in-process ------------------------------
+    os.environ["MINBFT_BENCH_RUNS"] = "1"
+    extras_path = os.path.join(bench.OUT_DIR, "extras.json")
+    for section in BENCH_SECTIONS:
+        path = f"bench_{section}"
+        out = io.StringIO()
+        t0 = time.time()
+        with _ErrorRecords() as errors:
+            reset_counts()
+            # The bench's section: every count moves only from here ...
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = bench.main([section])
+            except Exception as e:  # the bench's own failure, reported
+                fail(f"{path}: {type(e).__name__}: {e}")
+            # ... to here.
+            win = read_counts()
+        path_launches[path] = win
+        check(rc == 0, f"{path}: exit code {rc}")
+        check(not errors, f"{path}: ERROR records {errors[:5]}")
+        check(os.path.exists(extras_path) and os.path.getmtime(extras_path) >= t0,
+              f"{path}: {extras_path} not written")
+        with open(extras_path) as fh:
+            extras = json.load(fh)
+        printed = out.getvalue().strip().splitlines()
+        head = json.loads(printed[-1])
+        check(head["metric"] == "batched ECDSA-P256 verifies/sec/chip"
+              and head["backend"] == "cuda", f"{path}: headline line {printed[-1]}")
+        check("bench_extras" in json.loads(printed[-2]), f"{path}: no bench_extras line")
+        missing = sorted(bench_expected_keys(section) - set(extras))
+        check(not missing, f"{path}: keys missing {missing}")
+        need = {"kernels": ("K2'", "K3", "K6'", "K6s", "K7'", "K8"),
+                "mac": ("K6",), "cfg4": ("K2", "K3", "K6")}[section]
+        check(all(win[k] > 0 for k in need), f"{path}: a kernel of the path was not "
+              f"launched {win}")
+        if section == "kernels":
+            print(f"{path}: ECDSA verifies/s {extras['ecdsa_verifies_per_sec']:,.0f} "
+                  f"(B={extras['ecdsa_batch']}, {extras['ecdsa_ms_per_batch']} ms), "
+                  f"Ed25519 {extras['ed25519_verifies_per_sec']:,.0f}, HMAC "
+                  f"{extras['hmac_verifies_per_sec']:,.0f}; signs/s ECDSA "
+                  f"{extras['ecdsa_signs_per_sec']:,.0f} (big "
+                  f"{extras['ecdsa_sign_big_per_sec']:,.0f}), Ed25519 "
+                  f"{extras['ed25519_signs_per_sec']:,.0f}; sign queues ECDSA "
+                  f"{extras['ecdsa_device_signs_per_sec']:,.0f}, Ed25519 "
+                  f"{extras['ed25519_device_signs_per_sec']:,.0f}; prep speedups "
+                  f"{extras['ecdsa_prep_speedup']} / {extras['ed25519_prep_speedup']}; "
+                  f"launches {win}")
+            check(not extras["ecdsa_sign_queue_fallback"]
+                  and not extras["ed25519_sign_queue_fallback"],
+                  f"{path}: a sign queue signed on the host")
+            continue
+        p = section
+        check(extras[f"{p}_dispatch_timeouts"] == 0, f"{path}: dispatch timeouts")
+        check(extras[f"{p}_requests"] == BENCH_REQUESTS[section],
+              f"{path}: {extras[f'{p}_requests']} requests")
+        check(extras.get(f"{p}_sign_fallback_items", 0) == 0, f"{path}: host-signed lanes")
+        for kind in ("stage", "critpath"):
+            check(any(k.startswith(f"{p}_{kind}_") for k in extras),
+                  f"{path}: no {p}_{kind}_* keys from the traced run")
+        print(f"{path}: n={extras[f'{p}_n']} requests={extras[f'{p}_requests']} "
+              f"committed {extras[f'{p}_committed_req_per_sec']} req/s, latency p50 "
+              f"{extras[f'{p}_request_latency_p50_ms']} ms p99 "
+              f"{extras[f'{p}_request_latency_p99_ms']} ms; at the 500 ms SLO "
+              f"{extras[f'{p}_req_per_sec_at_p50_500ms']} req/s (depth "
+              f"{extras[f'{p}_slo_depth']}, p50 {extras[f'{p}_slo_achieved_p50_ms']} ms); "
+              f"USIG queue mean batch {extras[f'{p}_mean_batch']}, memo hits "
+              f"{extras[f'{p}_memo_hits']}; util busy {extras[f'{p}_util_busy']} fill "
+              f"{extras[f'{p}_util_fill']} useful {extras[f'{p}_util_useful']} against "
+              f"{extras[f'{p}_util_ceiling_per_sec']:,.0f} lanes/s; launches {win}")
+        stages = {k: v for k, v in extras.items() if k.startswith(f"{p}_stage_")
+                  and k.endswith("_share")}
+        print(f"{path} stage shares: {json.dumps(stages)}")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 14")
+    # -- phase 14 ----------------------------------------------------------------
     meta = {
         "K1": ("field_op (csrc/field.cuh library)", "minbft_tpu_torch/csrc/field.cuh",
                "minbft_tpu/ops/limbs.py:335"),
@@ -1264,6 +1703,16 @@ def main() -> int:
                "minbft_tpu/ops/ed25519.py:400"),
         "K8": ("ed25519_rb_kernel", "minbft_tpu_torch/csrc/ed25519_rb.cu",
                "minbft_tpu/ops/ed25519.py:487"),
+        "K4": ("ecdsa_kg_ladder_kernel", "minbft_tpu_torch/csrc/p256_kg_ladder.cu",
+               "minbft_tpu/ops/p256.py:550"),
+        "K2'": ("ecdsa_verify_kernel (_verify_batch, K2's eight-array form)",
+                "minbft_tpu_torch/csrc/p256_verify.cu", "minbft_tpu/ops/p256.py:264"),
+        "K6'": ("hmac_verify_kernel (K6's three-array form)",
+                "minbft_tpu_torch/csrc/hmac_sha256.cu", "minbft_tpu/ops/hmac_sha256.py:62"),
+        "K6s": ("hmac_sign_kernel", "minbft_tpu_torch/csrc/hmac_sha256.cu",
+                "minbft_tpu/ops/hmac_sha256.py:78"),
+        "K7'": ("ed25519_verify_kernel (K7's seven-array form)",
+                "minbft_tpu_torch/csrc/ed25519_verify.cu", "minbft_tpu/ops/ed25519.py:191"),
     }
     line = []
     for kid, (name, src, replaces) in meta.items():
@@ -1288,14 +1737,13 @@ def main() -> int:
             "parity": "exact",
         }
         if kid == "K1":
-            entry["inlined_into"] = ["K2", "K3", "K7", "K8"]
+            entry["inlined_into"] = ["K2", "K2'", "K3", "K4", "K7", "K7'", "K8"]
         if kid == "K5":
-            entry["inlined_into"] = ["K6"]
-        if kid in ("K2", "K6", "K7", "K8"):
-            entry["ms_b16384"] = k["ms_16384"]
-            entry["device_ms_b16384"] = k["device_ms_16384"]
-        if kid in ("K7", "K8"):
-            entry["bound_ms_b16384"] = k["bound_ms_16384"]
+            entry["inlined_into"] = ["K6", "K6'", "K6s"]
+        for bsz, (ms, dev_ms, b_ms, _by) in sorted(k.get("other", {}).items()):
+            entry[f"ms_b{bsz}"] = ms
+            entry[f"device_ms_b{bsz}"] = dev_ms
+            entry[f"bound_ms_b{bsz}"] = b_ms
         line.append(entry)
     print(f"total smoke time {time.perf_counter() - t_start:.1f} s on {name_power}")
     print(json.dumps({"kernels": line}))

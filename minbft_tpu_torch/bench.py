@@ -1,0 +1,992 @@
+"""Benchmark entry point of the port: ``python -m minbft_tpu_torch.bench``.
+
+Counterpart of the reference's ``bench.py``, with its function names, its
+output key names and its ``MINBFT_BENCH_*`` knobs wherever the reference
+has them, so each number here has a named counterpart there.  Two
+sections:
+
+- **kernels** — batched ECDSA-P256 verifies/s (K2', the eight-array
+  form; the headline, as in ``BASELINE.json``), ECDSA signs/s
+  (``sign_batch`` over K3), Ed25519 verifies/s (K7') and signs/s (K8),
+  the engine's sign queues, host prep against the scalar oracles, and
+  HMAC-SHA256 verifies/s (K6', its MACs made by K6s);
+- **clusters** — the reference's in-process cluster configurations
+  (``_bench_cluster``): ``e2e`` (BASELINE config 3: n = 7, ECDSA USIG,
+  10,000 requests), ``nodedup``, ``nodedupref``, ``cfg1``, ``cfg2``,
+  ``cfg4`` (n = 13, bucket 128), ``mac`` (n = 7, pairwise MACs, 8,000
+  requests), ``cfg5`` (n = 31, Ed25519, bucket 1,024) and ``iso``, each
+  emitting the reference's ``{prefix}_*`` keys: committed req/s mean ±
+  stddev over ``MINBFT_BENCH_RUNS``, client latency p50/p99, the
+  engine's batch, memo and prep keys, the ``_util_`` keys of
+  :class:`~minbft_tpu_torch.obs.DeviceLedger`, and the ``_stage_`` and
+  ``_critpath_`` keys of one traced run (every configuration gets one;
+  the reference traces ``e2e`` and ``cfg5`` only).
+
+Every timing ends in ``torch.cuda.synchronize()`` (on the card) before
+the clock stops.  Each ``*_compile_s`` key is the first call's time: on
+the card it includes building the kernels at first use in the process.
+
+Device rule: ``--device`` is ``cuda:0`` by default; ``--device cpu`` runs
+the plain PyTorch versions of the kernels and clamps the sizes as the
+reference's CPU mode does (batch 32, 500 requests; the configurations
+past ``e2e`` only with ``MINBFT_BENCH_ALL_CONFIGS``).  CUDA asked for and
+absent raises ``RuntimeError``.  A failed warm, traced or SLO run, a
+failed self-check and a timed-out request fail the bench.
+
+Output: the full extras go to ``build/torch_bench/extras.json`` beside
+the package (never the reference's ``BENCH_extras.json``); stdout gets
+one ``{"bench_extras": {...}}`` line of the headline-grade keys, then the
+headline line ``{"metric": "batched ECDSA-P256 verifies/sec/chip", ...}``
+stamped with the backend, the device and its power limit.
+
+Left out (ROADMAP.md queue 1, each with the module it waits for): the
+multi-process ``mp``/``mptcp`` runs (TCP/gRPC conns, ``sample/peer``),
+``bench_ingest_sweep``, ``_bench_readonly``, ``bench_groups``,
+``bench_load``, ``bench_groups_chips`` and ``bench_recovery`` (groups,
+loadgen, testing, recovery soak), and ``use_mesh`` (multi-GPU).  Dropped
+as JAX- or TPU-only: the lowering modes and ``*_mode`` keys, the compile
+cache keys, ``tpu_unavailable``, the ``last_tpu`` carry-forward, the TPU
+ceiling and the ``vs_baseline`` ratio.
+
+Placement differences from the reference's clusters: every signature
+(REQUEST, REPLY) and MAC is checked on the device, in the engine's
+verify queues, because the port has no host queues; and the clients share
+the replicas' engine.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import faulthandler
+import hashlib
+import json
+import os
+import secrets
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .ops import backend, limbs
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_bench")
+
+# Default sizes, the reference's: the kernel section's batches
+# (MINBFT_BENCH_BATCH for the verify forms and the large sign batch) and
+# cfg4's bucket.  chip_smoke.py checks the kernels at these shapes.
+BATCH = 32768
+HMAC_BATCH = 8192
+SIGN_BATCH = 2048
+ED_SIGN_BATCH = 8192
+SIGN_QUEUE_BUCKET = 2048
+CFG4_BUCKET = 128
+
+SECTIONS = (
+    "kernels", "e2e", "nodedup", "nodedupref", "cfg1", "cfg2", "cfg4", "mac",
+    "cfg5", "iso",
+)
+# Per-request deadline of the cluster drives (the reference's).
+REQUEST_TIMEOUT_S = 240.0
+# Timed full-bucket dispatches of the ledger's ceiling probe.
+PROBE_REPS = 5
+
+
+class BenchError(RuntimeError):
+    """A self-check or a run of the bench failed."""
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise BenchError(f"self-check failed: {what}")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(fn, n_iter: int, dev: torch.device):
+    """Seconds per call of ``fn`` over ``n_iter`` calls, the device drained
+    before and after; returns (seconds, last result)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        out = fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / n_iter, out
+
+
+def _iters(dev: torch.device, on_card: int) -> int:
+    """Timed iterations: the reference's count on the card, one for the
+    plain versions on the CPU (seconds per call)."""
+    return on_card if dev.type == "cuda" else 1
+
+
+def _first_and_timed(fn, n_iter: int, dev: torch.device):
+    """(first call's seconds, seconds per timed call, last result).  On
+    the card the first call builds the kernels at first use, so ``n_iter``
+    timed calls follow it; the plain versions on the CPU have no first-use
+    cost, and their first call is the timed one."""
+    first_s, out = _timed(fn, 1, dev)
+    if dev.type != "cuda":
+        return first_s, first_s, out
+    dt, out = _timed(fn, n_iter, dev)
+    return first_s, dt, out
+
+
+# ---------------------------------------------------------------------------
+# Kernel section.
+
+
+def bench_ecdsa(batch: int, device=None, prefix: str = "ecdsa") -> dict:
+    """Batched ECDSA-P256 verify rate of K2' (the eight-array form, as
+    the reference times ``ecdsa_verify_kernel``) on device-resident
+    arrays, with the reference's corrupted-lane check through
+    ``verify_batch``."""
+    from .ops import p256
+    from .utils import hostcrypto as hc
+
+    dev = backend.resolve_device(device)
+    d, q = hc.keygen()
+    digest = hashlib.sha256(b"bench").digest()
+    sig = hc.ecdsa_sign(d, digest)
+    items = [(q, digest, sig)] * batch
+    arrays = limbs.arrays_to(p256.prepare_batch(items), dev)
+    compile_s, dt, out = _first_and_timed(
+        lambda: p256.ecdsa_verify_kernel(*arrays), 20, dev
+    )
+    _check(bool(out.all()), "valid ECDSA batch rejected")
+    bad = [(q, digest, sig)] * 4
+    bad[2] = (q, digest, (sig[0], sig[1] ^ 2))
+    res = p256.verify_batch(bad, device=dev)
+    _check(list(res) == [True, True, False, True], "ECDSA corrupted lane")
+    return {
+        f"{prefix}_batch": batch,
+        f"{prefix}_ms_per_batch": round(dt * 1e3, 2),
+        f"{prefix}_verifies_per_sec": batch / dt,
+        f"{prefix}_compile_s": round(compile_s, 1),
+    }
+
+
+def bench_ecdsa_sign(batch: int, device=None) -> dict:
+    """Batched signing: K3 does k*G, the host finishes (r, s)
+    (``ops/p256.py`` ``sign_batch``)."""
+    from .ops import p256
+    from .utils import hostcrypto as hc
+
+    dev = backend.resolve_device(device)
+    d, _ = hc.keygen()
+    digest = hashlib.sha256(b"sign-bench").digest()
+    items = [(d, digest)] * batch
+    t0 = time.perf_counter()
+    sigs = p256.sign_batch(items, device=dev)
+    compile_s = time.perf_counter() - t0
+    _check(all(s == sigs[0] for s in sigs), "ECDSA batch signatures differ")
+    _check(sigs[0] == hc.ecdsa_sign_py(d, digest), "ECDSA signature != host signer")
+    n_iter = _iters(dev, 3)
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        sigs = p256.sign_batch(items, device=dev)
+    dt = (time.perf_counter() - t0) / n_iter
+    return {
+        "ecdsa_sign_batch": batch,
+        "ecdsa_signs_per_sec": batch / dt,
+        "ecdsa_sign_compile_s": round(compile_s, 1),
+    }
+
+
+def bench_ed25519(batch: int, device=None) -> dict:
+    """Batched Ed25519 verify rate of K7' (the seven-array form, as the
+    reference times ``ed25519_verify_kernel``) on device-resident arrays;
+    host prep stays off the clock."""
+    from .ops import ed25519 as ed
+    from .utils import hostcrypto as hc
+
+    dev = backend.resolve_device(device)
+    seed, pub = hc.ed25519_keygen(secrets.token_bytes(32))
+    msg = hashlib.sha256(b"bench-ed").digest()
+    sig = hc.ed25519_sign(seed, msg)
+    batch = max(batch, 4)  # the corrupted-lane check slices 4 items
+    items = [(pub, msg, sig)] * batch
+    arrays = limbs.arrays_to(ed.prepare_batch(items, batch), dev)
+    compile_s, dt, out = _first_and_timed(
+        lambda: ed.ed25519_verify_kernel(*arrays), 20, dev
+    )
+    _check(bool(out.all()), "valid Ed25519 batch rejected")
+    bad = items[:4]
+    bad[2] = (pub, msg, sig[:32] + bytes([sig[32] ^ 1]) + sig[33:])
+    res = ed.verify_batch(bad, device=dev)
+    _check(list(res) == [True, True, False, True], "Ed25519 corrupted lane")
+    return {
+        "ed25519_batch": batch,
+        "ed25519_ms_per_batch": round(dt * 1e3, 2),
+        "ed25519_verifies_per_sec": batch / dt,
+        "ed25519_compile_s": round(compile_s, 1),
+    }
+
+
+def bench_ed25519_sign(batch: int, device=None) -> dict:
+    """Batched Ed25519 signing: K8 does r*B, the host derives the scalars
+    and compresses (``ops/ed25519.py`` ``sign_batch``)."""
+    from .ops import ed25519 as ed
+    from .utils import hostcrypto as hc
+
+    dev = backend.resolve_device(device)
+    seed, _ = hc.ed25519_keygen(secrets.token_bytes(32))
+    items = [(seed, b"ed-sign-bench")] * batch
+    t0 = time.perf_counter()
+    sigs = ed.sign_batch(items, device=dev)
+    compile_s = time.perf_counter() - t0
+    _check(sigs[0] == hc.ed25519_sign(seed, b"ed-sign-bench"),
+           "Ed25519 signature != host signer")
+    n_iter = _iters(dev, 3)
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        ed.sign_batch(items, device=dev)
+    dt = (time.perf_counter() - t0) / n_iter
+    return {
+        "ed25519_sign_batch": batch,
+        "ed25519_signs_per_sec": batch / dt,
+        "ed25519_sign_compile_s": round(compile_s, 1),
+    }
+
+
+async def _drive_sign_queue(eng, scheme: str, items, depth: int = 256) -> None:
+    """Drive the engine's sign queue the way the protocol does: many
+    concurrent awaiters, bounded in flight, each occupying its own lane
+    (the queue is memo-free — every sign is unique)."""
+    sem = asyncio.Semaphore(depth)
+    sign = eng.sign_ecdsa_p256 if scheme == "ecdsa" else eng.sign_ed25519
+
+    async def one(it):
+        async with sem:
+            await sign(*it)
+
+    await asyncio.gather(*[one(it) for it in items])
+
+
+def bench_sign_queue(n_items: int = 8192, bucket: int = SIGN_QUEUE_BUCKET,
+                     device=None) -> dict:
+    """Signing throughput through the engine's sign queues (not the raw
+    kernels): concurrent submitters await individual lanes, the queue
+    ships fixed-bucket batches to K3 / K8.  A CPU engine signs on the
+    host; ``*_sign_queue_fallback`` then says so, so a CPU number never
+    passes for the card's."""
+    from .parallel import BatchVerifier
+    from .parallel.engine import SignStats
+    from .utils import hostcrypto as hc
+
+    dev = backend.resolve_device(device)
+    if dev.type == "cpu":
+        n_items = min(n_items, 256)
+        bucket = min(bucket, 64)
+    out: dict = {}
+    for scheme, qname in (("ecdsa", "ecdsa_p256"), ("ed25519", "ed25519")):
+        eng = BatchVerifier(max_batch=bucket, buckets=(bucket,), device=dev)
+        if scheme == "ecdsa":
+            d, _ = hc.keygen()
+            items = [(d, hashlib.sha256(b"sq-%d" % i).digest()) for i in range(n_items)]
+        else:
+            seed, _ = hc.ed25519_keygen(hashlib.sha256(b"sq").digest())
+            items = [(seed, b"sq-%d" % i) for i in range(n_items)]
+        # One full bucket through the queue first (the kernels' first
+        # launch lands off the clock), then reset the counters.
+        t0 = time.perf_counter()
+        asyncio.run(_drive_sign_queue(eng, scheme, items[:bucket]))
+        compile_s = time.perf_counter() - t0
+        for q in eng._sign_queues.values():
+            q.stats = SignStats()
+        t0 = time.perf_counter()
+        asyncio.run(_drive_sign_queue(eng, scheme, items))
+        dt = time.perf_counter() - t0
+        st = eng.sign_stats[qname]
+        _check(st.items == n_items,
+               f"{scheme} sign queue signed {st.items} of {n_items}")
+        out[f"{scheme}_device_signs_per_sec"] = round(n_items / dt, 1)
+        out[f"{scheme}_sign_queue_mean_batch"] = round(st.mean_batch, 1)
+        out[f"{scheme}_sign_queue_compile_s"] = round(compile_s, 1)
+        out[f"{scheme}_sign_queue_fallback"] = st.host_fallback_items > 0
+        if st.host_fallback_items:
+            out[f"{scheme}_sign_queue_host_fallback_items"] = st.host_fallback_items
+    return out
+
+
+def bench_prep(batch: int = 16384, ed_batch: int = 4096) -> dict:
+    """Host batch-prep microbench: the vectorised ``prepare_batch`` (one
+    Montgomery batch inversion per batch, whole-batch numpy packing and
+    range checks) against the per-item scalar oracle on the same host,
+    with a bit-identity check of the packed outputs.  Host work only, so
+    it runs at full size on every device.  Items are synthetic but in
+    range (distinct values keep the big-int work honest)."""
+    import random
+
+    from .ops import ed25519 as ed
+    from .ops import p256
+    from .utils import hostcrypto as hc
+
+    rng = random.Random(0x5EED)
+    items = [
+        (
+            (rng.randrange(p256.P), rng.randrange(p256.P)),
+            rng.randbytes(32),
+            (rng.randrange(1, p256.N), rng.randrange(1, p256.N)),
+        )
+        for _ in range(batch)
+    ]
+    vec = p256.pack_arrays(p256.prepare_batch(items))
+    oracle = p256.pack_arrays(p256.prepare_batch_scalar(items))
+    _check(np.array_equal(vec, oracle), "vectorised ECDSA prep != scalar oracle")
+
+    def best_of(fn, n_iter=3):
+        best = float("inf")
+        for _ in range(n_iter):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    tv = best_of(lambda: p256.prepare_batch(items))
+    ts = best_of(lambda: p256.prepare_batch_scalar(items))
+
+    # Ed25519: one real key (the cache-hit production shape: a cluster's
+    # key set is small), synthetic 64-byte signatures with s < L.
+    _seed, pub = hc.ed25519_keygen(b"\x07" * 32)
+    ed_items = [
+        (pub, rng.randbytes(32),
+         rng.randbytes(32) + rng.randrange(ed.L).to_bytes(32, "little"))
+        for _ in range(ed_batch)
+    ]
+    ed_vec = ed.prepare_packed(ed_items, ed_batch)
+    ed_oracle = ed.pack_arrays(ed.prepare_batch_scalar(ed_items, ed_batch))
+    _check(np.array_equal(ed_vec, ed_oracle),
+           "vectorised Ed25519 prep != scalar oracle")
+    ed_tv = best_of(lambda: ed.prepare_batch(ed_items, ed_batch))
+    ed_ts = best_of(lambda: ed.prepare_batch_scalar(ed_items, ed_batch))
+    return {
+        "prep_batch": batch,
+        "ecdsa_prep_items_per_sec": round(batch / tv, 1),
+        "ecdsa_prep_scalar_items_per_sec": round(batch / ts, 1),
+        "ecdsa_prep_speedup": round(ts / tv, 2),
+        "ed25519_prep_batch": ed_batch,
+        "ed25519_prep_items_per_sec": round(ed_batch / ed_tv, 1),
+        "ed25519_prep_scalar_items_per_sec": round(ed_batch / ed_ts, 1),
+        "ed25519_prep_speedup": round(ed_ts / ed_tv, 2),
+    }
+
+
+def bench_hmac(batch: int = HMAC_BATCH, device=None) -> dict:
+    """HMAC-SHA256 verify rate of K6' on device-resident arrays, the MACs
+    made by K6s (lane 0 held against Python's ``hmac``)."""
+    import hmac as py_hmac
+
+    from .ops import sha256
+    from .ops.hmac_sha256 import hmac_sign_kernel, hmac_verify_kernel
+
+    dev = backend.resolve_device(device)
+    rng = np.random.default_rng(0)
+    keys_np = rng.integers(0, 2**32, (batch, 8), dtype=np.uint32)
+    msgs_np = rng.integers(0, 2**32, (batch, 8), dtype=np.uint32)
+    keys = sha256.as_i32(keys_np).to(dev)
+    msgs = sha256.as_i32(msgs_np).to(dev)
+    macs = hmac_sign_kernel(keys, msgs)
+    mac0 = py_hmac.new(sha256.words_to_bytes(keys_np[0]),
+                       sha256.words_to_bytes(msgs_np[0]), hashlib.sha256).digest()
+    _check(sha256.words_to_bytes(sha256.as_u32(macs[0])) == mac0, "HMAC != Python hmac")
+    macs = sha256.as_i32(sha256.as_u32(macs)).to(dev)  # int32 carriers on every device
+    _check(bool(hmac_verify_kernel(keys, msgs, macs).all()),
+           "valid HMAC batch rejected")
+    dt, out = _timed(lambda: hmac_verify_kernel(keys, msgs, macs), _iters(dev, 50), dev)
+    _check(bool(out.all()), "valid HMAC batch rejected (timed)")
+    return {"hmac_batch": batch, "hmac_verifies_per_sec": batch / dt}
+
+
+# ---------------------------------------------------------------------------
+# Cluster section.
+
+
+def _bench_cluster_repeated(*args, **kw) -> dict:
+    """Run a cluster configuration MINBFT_BENCH_RUNS times (default 3)
+    and report mean ± stddev of committed req/s; the other keys come from
+    the last run.  ``warm_run`` adds one short untimed pass first,
+    ``trace_run`` one short traced pass for the ``_stage_``/``_critpath_``
+    keys, and, unless MINBFT_BENCH_SKIP_SLO or ``no_dedup``, one shorter
+    run at the client depth that Little's law gives for a 500 ms p50
+    (MINBFT_BENCH_SLO_P50_MS).  Any failed run, a request past its
+    deadline included, fails the configuration."""
+    runs = kw.pop("runs", None) or int(os.environ.get("MINBFT_BENCH_RUNS", "3"))
+    prefix = kw.get("prefix", "e2e")
+    trace_run = kw.pop("trace_run", False)
+    out: dict = {}
+    vals = []
+
+    def run(run_args, run_kw):
+        # Wedge forensics while the run is live: a stack dump to stderr
+        # if it is still going after 180 s (the process keeps running).
+        faulthandler.dump_traceback_later(180, exit=False, file=sys.stderr)
+        try:
+            return asyncio.run(_bench_cluster(*run_args, **run_kw))
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+
+    if kw.pop("warm_run", False):
+        warm_args = list(args)
+        if len(warm_args) >= 3:
+            warm_args[2] = min(warm_args[2], 1500)
+        run(warm_args, dict(kw, prefix="warm"))
+    for _ in range(max(runs, 1)):
+        out = run(args, kw)
+        vals.append(out[f"{prefix}_committed_req_per_sec"])
+    out[f"{prefix}_req_per_sec_runs"] = vals
+    out[f"{prefix}_committed_req_per_sec"] = round(statistics.mean(vals), 1)
+    out[f"{prefix}_req_per_sec_mean"] = out[f"{prefix}_committed_req_per_sec"]
+    out[f"{prefix}_req_per_sec_stddev"] = (
+        round(statistics.stdev(vals), 1) if len(vals) > 1 else 0.0
+    )
+    if trace_run:
+        tr_args = list(args)
+        if len(tr_args) >= 3:
+            tr_args[2] = min(tr_args[2], max(tr_args[2] // 2, 300))
+        traced = run(tr_args, dict(kw, trace=True))
+        out.update({k: v for k, v in traced.items()
+                    if "_stage_" in k or "_critpath_" in k})
+    if os.environ.get("MINBFT_BENCH_SKIP_SLO") or kw.get("no_dedup"):
+        return out
+    target = float(os.environ.get("MINBFT_BENCH_SLO_P50_MS", "500"))
+    depth = kw.get("depth") or int(os.environ.get("MINBFT_BENCH_DEPTH", "24"))
+    p50 = out.get(f"{prefix}_request_latency_p50_ms", 0.0)
+    slo_depth = max(1, min(depth, round(depth * target / max(p50, 1.0))))
+    slo_args = list(args)
+    if len(slo_args) >= 3:
+        slo_args[2] = max(slo_args[2] // 4, 400)
+    slo = run(slo_args, dict(kw, prefix="slo", depth=slo_depth))
+    out[f"{prefix}_req_per_sec_at_p50_{int(target)}ms"] = (
+        slo["slo_committed_req_per_sec"]
+    )
+    out[f"{prefix}_slo_depth"] = slo_depth
+    out[f"{prefix}_slo_achieved_p50_ms"] = slo["slo_request_latency_p50_ms"]
+    out[f"{prefix}_slo_achieved_p99_ms"] = slo["slo_request_latency_p99_ms"]
+    return out
+
+
+def _unique(engines) -> list:
+    return list({id(e): e for e in engines}.values())
+
+
+async def _bench_cluster(
+    n: int,
+    f: int,
+    n_requests: int,
+    n_clients: int = 64,
+    usig_kind: str = "hmac",
+    scheme: str = "ecdsa-p256",
+    max_batch: int = 512,
+    prefix: str = "e2e",
+    isolated_engines: bool = False,
+    depth: int = None,
+    no_dedup: bool = False,
+    batchsize_prepare: int = 256,
+    trace: bool = False,
+    device=None,
+) -> dict:
+    """Committed-request throughput through an in-process cluster of the
+    port: n replicas (replica core, SimpleLedger) and ``n_clients``
+    clients on in-process stubs, each client pipelining ``depth``
+    requests (MINBFT_BENCH_DEPTH, 24) of its share.  One engine is shared
+    by every replica and client (``isolated_engines``: one per replica,
+    the clients on another); one bucket, ``max_batch``.  ``scheme`` is
+    the CLIENT/REPLICA scheme (``ecdsa-p256``, ``ed25519`` or ``mac``),
+    ``usig_kind`` the USIG's (``ecdsa`` or ``hmac``)."""
+    from .client import new_client
+    from .core import new_replica
+    from .obs import CounterSampler, DeviceLedger, TimeSeries
+    from .obs.timeseries import register_engine_series
+    from .parallel import BatchVerifier
+    from .parallel.engine import SignStats, VerifyStats
+    from .sample.authentication import (
+        new_test_authenticators,
+        new_test_mac_authenticators,
+    )
+    from .sample.config import SimpleConfiger
+    from .sample.conn.inprocess import (
+        InProcessClientConnector,
+        InProcessPeerConnector,
+        make_testnet_stubs,
+    )
+    from .sample.requestconsumer import SimpleLedger
+    from .utils.metrics import aggregate
+
+    dev = backend.resolve_device(device)
+    # Eager tasks: most protocol tasks complete without suspending (memo
+    # hits, buffered sends), so running them at spawn saves loop turns.
+    if hasattr(asyncio, "eager_task_factory"):
+        asyncio.get_running_loop().set_task_factory(asyncio.eager_task_factory)
+    # ``no_dedup`` turns off the engine's memo (every verification takes a
+    # lane) and the core's verified-message memo, as in the reference.
+    shared = BatchVerifier(max_batch=max_batch, buckets=(max_batch,),
+                           dedup=not no_dedup, device=dev)
+    if isolated_engines:
+        # One engine per replica, as separate hosts would have: nothing is
+        # deduplicated across replicas.  The clients keep ``shared``.
+        engines = [
+            BatchVerifier(max_batch=max_batch, buckets=(max_batch,),
+                          dedup=not no_dedup, device=dev)
+            for _ in range(n)
+        ]
+    else:
+        engines = [shared] * n
+    configer = SimpleConfiger(
+        n=n, f=f,
+        # Above the per-request deadline: a stalled run fails at the
+        # deadline instead of starting a view change.
+        timeout_request=900.0, timeout_prepare=450.0,
+        batchsize_prepare=batchsize_prepare,
+    )
+    if no_dedup:
+        configer.dedup_verify = False
+    if trace:
+        configer.trace = True
+    if scheme == "mac":
+        replica_auths, client_auths = new_test_mac_authenticators(
+            n, n_clients=n_clients, usig_kind=usig_kind, engines=engines,
+            client_engine=shared,
+        )
+    else:
+        replica_auths, client_auths = new_test_authenticators(
+            n, n_clients=n_clients, scheme=scheme, usig_kind=usig_kind,
+            engines=engines, client_engine=shared,
+        )
+    stubs = make_testnet_stubs(n)
+    ledgers = [SimpleLedger() for _ in range(n)]
+    replicas = []
+    for i in range(n):
+        r = new_replica(
+            i, configer, replica_auths[i], InProcessPeerConnector(stubs), ledgers[i]
+        )
+        stubs[i].assign_replica(r)
+        replicas.append(r)
+    for r in replicas:
+        await r.start()
+    clients = []
+    for c in range(n_clients):
+        client = new_client(
+            c, n, f, client_auths[c], InProcessClientConnector(stubs),
+            seq_start=0, retransmit_interval=30.0, trace=trace,
+        )
+        await client.start()
+        clients.append(client)
+
+    # Warm the USIG's queue at every bucket, then calibrate the ledger's
+    # ceiling with the fastest of PROBE_REPS timed full-bucket dispatches
+    # on the warm queue, each on a worker thread as the queue's own
+    # dispatches run.  One timed dispatch is not enough: just after the
+    # cluster starts one can take tens of times the fastest (cfg5 on an
+    # H100: 11.1 and 33.9 ms, then 1.1, 0.87 and 0.74 ms), and a ceiling
+    # that low puts the fill factor above 1.
+    warm_queue = {
+        "hmac": ("hmac_sha256", shared._dispatch_hmac, (b"\x00" * 32,) * 3),
+        "ecdsa": ("ecdsa_p256", shared._dispatch_ecdsa, ((0, 0), b"\x00" * 32, (0, 0))),
+    }[usig_kind]
+    qname, dispatch, pad_item = warm_queue
+    shared._queue(qname, dispatch)
+    for b in shared.buckets:
+        await asyncio.to_thread(dispatch, [pad_item] * b)
+    probe_s = []
+    # (The CPU probe times the plain version: once is enough there.)
+    for _ in range(PROBE_REPS if dev.type == "cuda" else 1):
+        rate = await asyncio.to_thread(
+            DeviceLedger.probe_ceiling, dispatch, pad_item, max_batch
+        )
+        probe_s.append(max_batch / rate)
+    util_ceiling = (max_batch / min(probe_s), "cpu-probe" if dev.type == "cpu" else "probe")
+    if scheme == "ed25519":
+        shared._queue("ed25519", shared._dispatch_ed25519)
+        for b in shared.buckets:
+            await asyncio.to_thread(
+                shared._dispatch_ed25519, [(b"\x00" * 32, b"", b"\x00" * 64)] * b
+            )
+    await asyncio.wait_for(clients[0].request(b"warmup"), timeout=600)
+    # Warming put all-pad batches into the counters: reset them so the
+    # stats are the protocol's traffic only.
+    for e in _unique([shared, *engines]):
+        for q in e._queues.values():
+            q.stats = VerifyStats()
+        for q in e._sign_queues.values():
+            q.stats = SignStats()
+        e.queue_depth_peaks(reset=True)
+
+    # The ledger's window is the timed drive; the sampler ticks through it.
+    usig_queue = "hmac_sha256" if usig_kind == "hmac" else "ecdsa_p256"
+    # With isolated engines no one engine's clock carries the USIG queue,
+    # so the run has no ``_util_`` keys, as in the reference.
+    ledger = None if isolated_engines else DeviceLedger(shared)
+    if ledger is not None:
+        ledger.set_ceiling(usig_queue, util_ceiling[0], util_ceiling[1])
+    tseries = TimeSeries()
+    sampler = CounterSampler(tseries)
+    register_engine_series(sampler, shared)
+    sampler.add_rate(
+        "committed",
+        # Every replica executes every request: the minimum is what is
+        # committed everywhere.
+        lambda: min(
+            (r.metrics.counters.get("requests_executed", 0) for r in replicas),
+            default=0,
+        ),
+    )
+
+    per_client = n_requests // n_clients
+    n_requests = per_client * n_clients
+    if depth is None:
+        depth = int(os.environ.get("MINBFT_BENCH_DEPTH", "24"))
+    latencies_ms: list = []
+
+    async def timed_request(client, k: int) -> None:
+        t = time.perf_counter()
+        await asyncio.wait_for(client.request(b"op-%d" % k), timeout=REQUEST_TIMEOUT_S)
+        latencies_ms.append((time.perf_counter() - t) * 1e3)
+
+    async def drive(client) -> None:
+        for k0 in range(0, per_client, depth):
+            await asyncio.gather(
+                *[timed_request(client, k)
+                  for k in range(k0, min(k0 + depth, per_client))]
+            )
+
+    sampler_task = asyncio.get_running_loop().create_task(sampler.run())
+    t0 = time.perf_counter()
+    try:
+        await asyncio.gather(*[drive(c) for c in clients])
+    finally:
+        dt = time.perf_counter() - t0
+        util_keys = ledger.util_keys(prefix, usig_queue) if ledger else {}
+        sampler_task.cancel()
+        try:
+            await sampler_task
+        except asyncio.CancelledError:
+            pass
+
+    batch_stats: dict = {}
+    timeouts = 0
+    sign_agg = {"items": 0, "fallback": 0, "prep_s": 0.0, "disp_s": 0.0}
+    for e in _unique(engines):
+        for name, st in e.stats.items():
+            agg = batch_stats.setdefault(name, {
+                "items": 0, "batches": 0, "memo_hits": 0,
+                "host_prep_time_s": 0.0, "device_time_s": 0.0,
+            })
+            agg["items"] += st.items
+            agg["batches"] += st.batches
+            agg["memo_hits"] += st.memo_hits
+            agg["host_prep_time_s"] += st.host_prep_time_s
+            agg["device_time_s"] += st.device_time_s
+            timeouts += st.dispatch_timeouts
+        for st in e.sign_stats.values():
+            sign_agg["items"] += st.items
+            sign_agg["fallback"] += st.host_fallback_items
+            sign_agg["prep_s"] += st.host_prep_time_s
+            sign_agg["disp_s"] += st.device_time_s
+            timeouts += st.dispatch_timeouts
+    sig_stats = batch_stats.get("ed25519") if scheme == "ed25519" else None
+    device_signs = sign_agg["items"] - sign_agg["fallback"]
+
+    # Clients finish on f+1 matching replies; the other replicas may still
+    # be draining.  Wait for them before the invariant check.
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and not all(
+        lg.length >= n_requests + 1 for lg in ledgers
+    ):
+        await asyncio.sleep(0.05)
+    for client in clients:
+        await client.stop()
+    for r in replicas:
+        await r.stop()
+
+    stage_keys: dict = {}
+    if trace:
+        stage_keys = _trace_tables(replicas, clients, _unique(engines), prefix)
+    lengths = [lg.length for lg in ledgers]
+    if not all(x >= n_requests + 1 for x in lengths):
+        raise BenchError(f"{prefix}: ledgers {lengths} short of {n_requests + 1}")
+    agg = aggregate(r.metrics.snapshot() for r in replicas)
+    lat = np.asarray(sorted(latencies_ms))
+    uq = batch_stats.get(usig_queue, {})
+    return {
+        f"{prefix}_request_latency_p50_ms": round(float(np.percentile(lat, 50)), 2),
+        f"{prefix}_request_latency_p99_ms": round(float(np.percentile(lat, 99)), 2),
+        f"{prefix}_exec_latency_p50_ms": agg.get("execute_latency_p50_ms", 0),
+        f"{prefix}_exec_latency_p99_ms": agg.get("execute_latency_p99_ms", 0),
+        f"{prefix}_messages_handled": agg.get("messages_handled", 0),
+        f"{prefix}_messages_dropped": agg.get("messages_dropped", 0),
+        f"{prefix}_n": n,
+        f"{prefix}_f": f,
+        f"{prefix}_clients": n_clients,
+        f"{prefix}_requests": n_requests,
+        f"{prefix}_committed_req_per_sec": round(n_requests / dt, 1),
+        # The port's core has no bundle-ingest runtime yet: both read 0,
+        # present so the key set matches the reference's.
+        f"{prefix}_ingest_batch_mean": round(
+            agg.get("ingest_frames", 0) / max(agg.get("ingest_ticks", 0), 1), 2
+        ),
+        f"{prefix}_ingest_ticks_per_sec": round(agg.get("ingest_ticks", 0) / dt, 1),
+        f"{prefix}_batched_verifies": uq.get("items", 0),
+        f"{prefix}_batches": uq.get("batches", 0),
+        f"{prefix}_mean_batch": round(
+            uq.get("items", 0) / max(uq.get("batches", 0), 1), 1
+        ),
+        f"{prefix}_device_verifies_per_sec": round(uq.get("items", 0) / dt, 1),
+        f"{prefix}_logical_verifies": uq.get("items", 0) + uq.get("memo_hits", 0),
+        f"{prefix}_memo_hits": uq.get("memo_hits", 0),
+        # Not a reference key: every failed-by-timeout dispatch of the
+        # run, over all queues (the reference fell back to the host).
+        f"{prefix}_dispatch_timeouts": timeouts,
+        **(
+            {
+                f"{prefix}_sig_batched_verifies": sig_stats["items"],
+                f"{prefix}_sig_batches": sig_stats["batches"],
+            }
+            if sig_stats
+            else {}
+        ),
+        **{
+            f"{prefix}_{name}_prep_share": round(
+                s["host_prep_time_s"] / s["device_time_s"], 4
+            )
+            for name, s in batch_stats.items()
+            if s["device_time_s"] > 0 and s["host_prep_time_s"] > 0
+        },
+        **(
+            {
+                f"{prefix}_device_signs_per_sec": round(device_signs / dt, 1),
+                f"{prefix}_sign_share": round(device_signs / sign_agg["items"], 4),
+                f"{prefix}_sign_fallback_items": sign_agg["fallback"],
+                f"{prefix}_queue_signs": sign_agg["items"],
+            }
+            if sign_agg["items"]
+            else {}
+        ),
+        **(
+            {f"{prefix}_sign_prep_share": round(
+                sign_agg["prep_s"] / sign_agg["disp_s"], 4
+            )}
+            if sign_agg["disp_s"] > 0 and sign_agg["prep_s"] > 0
+            else {}
+        ),
+        **stage_keys,
+        **util_keys,
+        # Not a reference key: each of the ceiling probe's timed
+        # dispatches, in ms (the ceiling is the bucket over the fastest).
+        **({f"{prefix}_util_probe_ms": [round(t * 1e3, 4) for t in probe_s]}
+           if util_keys else {}),
+        f"{prefix}_queue_depth_peak": shared.queue_depth_peaks().get(usig_queue, 0),
+        **(
+            {
+                f"{prefix}_timeline": {
+                    "interval_s": tseries.interval_s,
+                    "series": {
+                        name: {"start_index": start,
+                               "values": [round(v, 2) for v in vals]}
+                        for name, (start, vals) in (
+                            (nm, tseries.timeline(nm))
+                            for nm in ("committed", "verify_items", "verify_fill",
+                                       "queue_depth")
+                        )
+                        if vals
+                    },
+                }
+            }
+            if tseries.names()
+            else {}
+        ),
+    }
+
+
+def _trace_tables(replicas, clients, engines, prefix: str) -> dict:
+    """The flight-recorder stage table and the cluster critical path of a
+    traced run, from every recorder's dump document (the deployments'
+    trace format, built in memory).  Each document holds every event its
+    ring still has: with thousands of requests in flight, a dump's default
+    newest 4,096 events leave no request with its whole path at a
+    replica, and the critical path would come out empty."""
+    from .obs import critpath as obs_critpath
+    from .obs import trace as obs_trace
+
+    def doc(rec, extra=None):
+        d = rec.to_dict(max_events=rec.ring.capacity)
+        d.update(extra or {})
+        return d
+
+    docs = [doc(r.handlers.trace, r.trace_dump_extra()) for r in replicas]
+    docs += [doc(c._trace) for c in clients if c._trace is not None]
+    docs += [obs_critpath.engine_queue_doc(e, ident=i) for i, e in enumerate(engines)]
+    keys = obs_trace.stage_table(docs, prefix)
+    keys.update(obs_critpath.critpath_table(docs, prefix))
+    return keys
+
+
+# ---------------------------------------------------------------------------
+# Entry point.
+
+
+def _device_stamp(dev: torch.device) -> dict:
+    if dev.type != "cuda":
+        return {"backend": "cpu", "device": "cpu", "power_limit": None}
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[dev.index or 0]
+    return {
+        "backend": "cuda",
+        "device": torch.cuda.get_device_name(dev),
+        "power_limit": out.rsplit(",", 1)[-1].strip(),
+        "nvidia_smi": out,
+    }
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, str(default)))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m minbft_tpu_torch.bench",
+        description="The port's benchmark: kernel rates and in-process clusters.",
+    )
+    parser.add_argument("--device", default=None,
+                        help="cuda:N (default cuda:0) or cpu (the plain PyTorch "
+                             "versions)")
+    parser.add_argument("sections", nargs="*", metavar="SECTION",
+                        help=f"run only these of {', '.join(SECTIONS)} (default: all)")
+    args = parser.parse_args(argv)
+    unknown = set(args.sections) - set(SECTIONS)
+    if unknown:
+        parser.error(f"unknown sections {sorted(unknown)}; choose from {SECTIONS}")
+    dev = backend.resolve_device(args.device)
+    on_cpu = dev.type == "cpu"
+
+    batch = _env_int("MINBFT_BENCH_BATCH", BATCH)
+    n_requests = _env_int("MINBFT_BENCH_REQUESTS", 10000)
+    n_clients = _env_int("MINBFT_BENCH_CLIENTS", 100)
+
+    from .utils.loop import maybe_enable_uvloop
+
+    extras: dict = _device_stamp(dev)
+    extras["uvloop"] = maybe_enable_uvloop()
+    if on_cpu:
+        # The plain versions on the CPU: tiny shapes, so the bench ends.
+        batch = min(batch, 32)
+        n_requests = min(n_requests, 500)
+    if args.sections:
+        # Named sections run whole and exactly as named; the reference's
+        # MINBFT_BENCH_SKIP_* and ALL_CONFIGS knobs shape only the default
+        # run.
+        want = set(args.sections)
+
+        def skip(knob):
+            return False
+    else:
+        def skip(knob):
+            return bool(os.environ.get(f"MINBFT_BENCH_SKIP_{knob}"))
+
+        all_configs = not on_cpu or bool(os.environ.get("MINBFT_BENCH_ALL_CONFIGS"))
+        want = {"kernels"}
+        if not skip("E2E"):
+            want.add("e2e")
+        if all_configs and not skip("NODEDUP"):
+            want |= {"nodedup", "nodedupref"}
+        if all_configs and not skip("CONFIGS"):
+            want |= set(SECTIONS[4:])
+    produced: dict = {}
+
+    def section(name, fn):
+        if name in want:
+            out = fn()
+            produced[name] = len(out)
+            extras.update(out)
+
+    def cluster(name, *a, **kw):
+        # Every configuration gets its traced run (the reference traces
+        # e2e and cfg5 only): the stage and critical-path shares are each
+        # cell's layer breakdown.
+        section(name, lambda: _bench_cluster_repeated(
+            *a, device=dev, trace_run=True, **kw))
+
+    def kernels() -> dict:
+        out = bench_hmac(min(HMAC_BATCH, batch) if on_cpu else HMAC_BATCH, device=dev)
+        out.update(bench_prep())
+        out.update(bench_ecdsa(batch, device=dev))
+        if not skip("SIGN"):
+            out.update(bench_ecdsa_sign(min(batch, SIGN_BATCH), device=dev))
+            if batch >= 8192:
+                big = bench_ecdsa_sign(batch, device=dev)
+                out["ecdsa_sign_big_batch"] = big["ecdsa_sign_batch"]
+                out["ecdsa_sign_big_per_sec"] = big["ecdsa_signs_per_sec"]
+            out.update(bench_sign_queue(device=dev))
+        if not skip("ED25519"):
+            out.update(bench_ed25519(batch, device=dev))
+            out.update(bench_ed25519_sign(min(batch, ED_SIGN_BATCH), device=dev))
+        return out
+
+    section("kernels", kernels)
+    # BASELINE config 3: n = 7, f = 3, ECDSA-P256, 10k requests.
+    cluster("e2e", 7, 3, n_requests, n_clients=n_clients, usig_kind="ecdsa",
+            warm_run=True)
+    cluster("nodedup", 7, 3, _env_int("MINBFT_BENCH_NODEDUP_REQUESTS", 2000),
+            n_clients=min(n_clients, 50), usig_kind="ecdsa", prefix="nodedup",
+            no_dedup=True, runs=1)
+    cluster("nodedupref", 7, 3, _env_int("MINBFT_BENCH_NODEDUPREF_REQUESTS", 1000),
+            n_clients=min(n_clients, 50), usig_kind="ecdsa", prefix="nodedupref",
+            no_dedup=True, batchsize_prepare=1, runs=1)
+    # BASELINE configs 1, 2, 4 and 5, the pairwise-MAC configuration and
+    # the isolated-engines topology, at the reference's lengths.
+    cluster("cfg1", 4, 1, _env_int("MINBFT_BENCH_CFG1_REQUESTS", 4000),
+            n_clients=min(n_clients, 50), usig_kind="hmac", prefix="cfg1")
+    cluster("cfg2", 4, 1, _env_int("MINBFT_BENCH_CFG2_REQUESTS", 4000),
+            n_clients=min(n_clients, 50), usig_kind="ecdsa", prefix="cfg2")
+    cluster("cfg4", 13, 6, _env_int("MINBFT_BENCH_CFG4_REQUESTS", 3000),
+            n_clients=min(n_clients, 50), usig_kind="hmac",
+            max_batch=CFG4_BUCKET, prefix="cfg4")
+    cluster("mac", 7, 3, _env_int("MINBFT_BENCH_MAC_REQUESTS", 8000),
+            n_clients=n_clients, usig_kind="hmac", scheme="mac", prefix="mac")
+    cluster("cfg5", 31, 15, _env_int("MINBFT_BENCH_CFG5_REQUESTS", 1000),
+            n_clients=min(n_clients, 50), usig_kind="hmac", scheme="ed25519",
+            max_batch=_env_int("MINBFT_BENCH_CFG5_BATCH", 1024), prefix="cfg5")
+    cluster("iso", 7, 3, _env_int("MINBFT_BENCH_ISO_REQUESTS", 4000),
+            n_clients=min(n_clients, 50), usig_kind="ecdsa", prefix="iso",
+            isolated_engines=True)
+    empty = sorted(name for name in want if not produced.get(name))
+    if empty:
+        raise BenchError(f"sections {empty} produced no keys")
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "extras.json"), "w") as fh:
+        json.dump(extras, fh, indent=1, sort_keys=True)
+    keep = (
+        "committed_req_per_sec", "req_per_sec_stddev", "req_per_sec_at_p50",
+        "slo_achieved_p50_ms", "verifies_per_sec", "signs_per_sec",
+        "sign_big_per_sec", "sign_share", "sign_queue_fallback",
+        "request_latency_p50_ms", "request_latency_p99_ms", "_stage_",
+        "_critpath_", "mean_batch", "logical_verifies", "memo_hits",
+        "prep_share", "prep_speedup", "prep_items_per_sec", "backend", "device",
+        "power_limit", "_util_", "queue_depth_peak", "dispatch_timeouts",
+    )
+    compact = {k: extras[k] for k in sorted(extras) if any(p in k for p in keep)}
+    print(json.dumps({"bench_extras": compact}))
+    value = extras.get("ecdsa_verifies_per_sec")
+    print(json.dumps({
+        "metric": "batched ECDSA-P256 verifies/sec/chip",
+        "value": None if value is None else round(value, 1),
+        "unit": "verifies/sec",
+        "backend": extras["backend"],
+        "device": extras["device"],
+        "power_limit": extras["power_limit"],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 // K1: 256-bit Montgomery field arithmetic for the P-256 prime p, the
 // group order n and the Ed25519 prime 2^255 - 19, as a __device__ library
-// inlined into K2, K3, K7 and K8.
+// inlined into K2, K3, K4, K7 and K8.
 //
 // Replaces: minbft_tpu/ops/limbs.py (mont_mul with its unrolled / block /
 // loop lowerings, _mont_finish, _cond_sub, add_mod, sub_mod,
@@ -107,6 +107,24 @@ __device__ __forceinline__ void fe_to_u16(const Fe& a, uint16_t* p) {
     p[2 * j] = (uint16_t)(a.v[j] & 0xffffu);
     p[2 * j + 1] = (uint16_t)(a.v[j] >> 16);
   }
+}
+
+// Word w (0 = least significant) of a scalar, by selects: a dynamic index
+// into a register array would put the array in local memory.
+__device__ __forceinline__ uint32_t fe_word(const Fe& s, int w) {
+  uint32_t r = s.v[0];
+#pragma unroll
+  for (int j = 1; j < 8; ++j) r = (w == j) ? s.v[j] : r;
+  return r;
+}
+
+// Widen 16 little-endian limbs carried in 32-bit lanes (the reference's
+// [16] u32 limb arrays, each limb < 2^16) to 8 words.
+__device__ __forceinline__ Fe fe_from_u32_limbs(const uint32_t* p) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = p[2 * j] | (p[2 * j + 1] << 16);
+  return r;
 }
 
 __device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {

@@ -1,0 +1,276 @@
+"""Device-utilization ledger: where every engine wall-second and every
+dispatched lane went, and which factor loses the 100x.
+
+ROADMAP's headline gap — the chip verifies ~164k ECDSA sigs/s while the
+best end-to-end config commits ~1.1k req/s — has only ever been an
+INFERENCE from two unrelated numbers.  The ledger turns it into a
+measured decomposition.  Over a window ``[t0, t1]`` (captured with
+:meth:`DeviceLedger.snapshot`), each engine queue's accounting splits:
+
+- **wall time** into *busy* (the sum of ``_run``'s dispatch spans,
+  ``VerifyStats.device_time_s``, clamped to wall — ``max_inflight``
+  overlap can legitimately stack spans past the clock) and *idle*;
+- **lanes** into *useful* (real protocol items dispatched), *padding*
+  (bucket fill lanes), *memo-duplicate* (logical verifies the dedup
+  memo absorbed before they could cost a lane), and *host-fallback*
+  (sign items served by host crypto) — the four classes sum to the
+  total lane demand by construction, and the test suite pins it.
+
+The headline is the multiplicative headroom identity
+
+    effective_rate = ceiling × busy_fraction × fill_efficiency × useful_fraction
+
+where ``ceiling`` is the CALIBRATED full-batch lane rate (in the port
+always one timed full-bucket dispatch on the warm queue,
+:meth:`DeviceLedger.probe_ceiling`, which the bench runs), and the three
+factors are defined so the product is EXACT, not approximate:
+
+- ``busy_fraction  = busy_s / wall_s``              (idle loses the rest)
+- ``fill_efficiency = dispatched_lanes / (ceiling × busy_s)``
+  — how close busy time ran to the calibrated lane rate.  Sub-bucket
+  dispatches are its dominant loss (the calibration point is a FULL
+  bucket, so a batch of 3 pays the same round trip for 0.6% of the
+  lanes); per-dispatch host overhead inside the span is the rest.  May
+  exceed 1.0 when the live run beats a noisy CPU probe — left
+  unclamped, because clamping would break the identity.
+- ``useful_fraction = useful_lanes / dispatched_lanes``
+  (padding is the loss)
+
+so ``ceiling × busy × fill × useful ≡ useful_lanes / wall_s`` — the
+factor-product invariant tests/test_ledger.py pins to fp tolerance.
+Reading it is perf/UTILIZATION.md's job; emitting it into the bench
+artifact (``*_util_*`` keys) is bench.py's.
+
+Multichip readiness: the ledger carries ``n_devices`` (the engine's
+mesh width) and reports per-device rates alongside the pooled ones, so
+the multichip engine pool lands into an accounting that already has the
+axis.
+
+Port of :mod:`minbft_tpu.obs.ledger` (a copy).  ``PoolLedger`` waits for
+the port's multi-GPU engine pool.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+
+@dataclasses.dataclass
+class QueueWindow:
+    """One queue's accounting over the snapshot window (all fields are
+    deltas against the ledger's baseline)."""
+
+    name: str
+    side: str  # "verify" | "sign"
+    wall_s: float
+    busy_s: float  # clamped to wall_s; raw overlap kept alongside
+    device_time_s: float  # unclamped dispatch-span sum (may exceed wall)
+    useful_lanes: int
+    padded_lanes: int
+    memo_lanes: int
+    fallback_lanes: int
+    batches: int
+
+    @property
+    def idle_s(self) -> float:
+        return max(self.wall_s - self.busy_s, 0.0)
+
+    @property
+    def dispatched_lanes(self) -> int:
+        return self.useful_lanes + self.padded_lanes
+
+    @property
+    def total_lanes(self) -> int:
+        """Every lane of demand the window saw: dispatched (useful +
+        padding) plus the lanes dedup absorbed and host crypto served.
+        The four classes sum to this BY DEFINITION — the invariant test
+        exists to catch a future field being added to one side only."""
+        return (self.useful_lanes + self.padded_lanes
+                + self.memo_lanes + self.fallback_lanes)
+
+    @property
+    def mean_batch(self) -> float:
+        return self.useful_lanes / self.batches if self.batches else 0.0
+
+
+@dataclasses.dataclass
+class Decomposition:
+    """The headroom identity, evaluated for one queue window."""
+
+    ceiling_per_sec: float
+    ceiling_source: str
+    busy_fraction: float
+    fill_efficiency: float
+    useful_fraction: float
+    effective_per_sec: float
+    n_devices: int
+
+    @property
+    def per_device_effective_per_sec(self) -> float:
+        return self.effective_per_sec / max(self.n_devices, 1)
+
+    def product(self) -> float:
+        """``ceiling × busy × fill × useful`` — equals
+        ``effective_per_sec`` to fp tolerance (the pinned invariant)."""
+        return (self.ceiling_per_sec * self.busy_fraction
+                * self.fill_efficiency * self.useful_fraction)
+
+
+class DeviceLedger:
+    """Windowed utilization accounting over one engine.
+
+    Construct AFTER any warm-up stats reset (the baseline is captured at
+    construction); call :meth:`snapshot` at the end of the measured
+    window.  Purely read-side: the ledger only ever reads the engine's
+    existing stats snapshots (GIL-atomic dict/int reads, the same
+    contract the Prometheus scrape uses), so attaching one costs the
+    hot path nothing — the disabled-path A/B test pins that.
+    """
+
+    def __init__(self, engine, now: Optional[float] = None):
+        self.engine = engine
+        self._t0 = time.monotonic() if now is None else now
+        self._base = self._capture()
+        # BatchVerifier stores its mesh as ``mesh``; synthetic test
+        # engines (and the original ledger contract) use ``_mesh`` —
+        # honour both so a mesh-routed engine reports its real width.
+        mesh = getattr(engine, "mesh", None)
+        if mesh is None:
+            mesh = getattr(engine, "_mesh", None)
+        self.n_devices = int(mesh.size) if mesh is not None else 1
+        self._ceilings: Dict[str, tuple] = {}  # name -> (rate, source)
+
+    def _capture(self) -> Dict[tuple, dict]:
+        snap: Dict[tuple, dict] = {}
+        for name, st in self.engine.stats.items():
+            snap[("verify", name)] = {
+                "items": st.items, "batches": st.batches,
+                "padded": st.padded_lanes, "memo": st.memo_hits,
+                "fallback": 0, "device_s": st.device_time_s,
+            }
+        for name, st in self.engine.sign_stats.items():
+            snap[("sign", name)] = {
+                "items": st.items, "batches": st.batches,
+                "padded": st.padded_lanes, "memo": 0,
+                "fallback": st.host_fallback_items,
+                "device_s": st.device_time_s,
+            }
+        return snap
+
+    def set_ceiling(self, queue: str, lanes_per_sec: float,
+                    source: str) -> None:
+        """Record the calibrated full-batch lane rate for ``queue``.
+        ``source`` says where the number came from (``cpu-probe`` /
+        ``probe``): a ceiling without provenance is how CPU and device
+        numbers get confused."""
+        if lanes_per_sec <= 0:
+            raise ValueError("ceiling must be positive")
+        self._ceilings[queue] = (float(lanes_per_sec), source)
+
+    @staticmethod
+    def probe_ceiling(dispatch, pad_item, bucket: int) -> float:
+        """One-shot CPU calibration: time one full-bucket dispatch of
+        pad items through the queue's own dispatch function.  Run it on
+        a WARM queue (after the kernel compiled) or the probe times the
+        compiler."""
+        t = time.perf_counter()
+        dispatch([pad_item] * bucket)
+        dt = time.perf_counter() - t
+        return bucket / dt if dt > 0 else float(bucket)
+
+    def snapshot(self, now: Optional[float] = None) -> Dict[str, QueueWindow]:
+        """Per-queue window accounting since construction, keyed
+        ``{side}:{name}``."""
+        wall = max((time.monotonic() if now is None else now) - self._t0,
+                   1e-9)
+        cur = self._capture()
+        out: Dict[str, QueueWindow] = {}
+        for key, c in cur.items():
+            side, name = key
+            b = self._base.get(key, {
+                "items": 0, "batches": 0, "padded": 0, "memo": 0,
+                "fallback": 0, "device_s": 0.0,
+            })
+            d = {k: c[k] - b[k] for k in c}
+            if d["items"] <= 0 and d["batches"] <= 0:
+                continue
+            fallback = max(d["fallback"], 0)
+            # Sign items count EVERY accepted item; host-fallback items
+            # never crossed the device, so useful device lanes exclude
+            # them (verify's fallback is always 0).
+            useful = max(d["items"] - fallback, 0)
+            out[f"{side}:{name}"] = QueueWindow(
+                name=name, side=side, wall_s=wall,
+                busy_s=min(max(d["device_s"], 0.0), wall),
+                device_time_s=max(d["device_s"], 0.0),
+                useful_lanes=useful,
+                padded_lanes=max(d["padded"], 0),
+                memo_lanes=max(d["memo"], 0),
+                fallback_lanes=fallback,
+                batches=max(d["batches"], 0),
+            )
+        return out
+
+    def decompose(self, win: QueueWindow,
+                  ceiling: Optional[float] = None,
+                  source: Optional[str] = None) -> Decomposition:
+        """Evaluate the headroom identity for one queue window.  With no
+        calibrated ceiling available the window's OWN achieved busy lane
+        rate is used (source ``self``): the decomposition then reads
+        fill_efficiency = 1.0 by construction and still attributes busy
+        vs idle vs padding honestly."""
+        if ceiling is None:
+            stored = self._ceilings.get(win.name)
+            if stored is not None:
+                ceiling, source = stored
+        if ceiling is None or ceiling <= 0:
+            busy = max(win.busy_s, 1e-9)
+            ceiling = win.dispatched_lanes / busy
+            source = "self"
+            if ceiling <= 0:
+                ceiling = 1.0
+        busy_fraction = win.busy_s / win.wall_s
+        denom = ceiling * win.busy_s
+        fill = win.dispatched_lanes / denom if denom > 0 else 0.0
+        useful = (win.useful_lanes / win.dispatched_lanes
+                  if win.dispatched_lanes else 0.0)
+        return Decomposition(
+            ceiling_per_sec=ceiling,
+            ceiling_source=source or "unknown",
+            busy_fraction=busy_fraction,
+            fill_efficiency=fill,
+            useful_fraction=useful,
+            effective_per_sec=win.useful_lanes / win.wall_s,
+            n_devices=self.n_devices,
+        )
+
+    def util_keys(self, prefix: str, queue: str,
+                  now: Optional[float] = None) -> Dict[str, object]:
+        """The bench-artifact key block for one queue: the decomposition
+        factors, the lane classes, and the provenance stamps — the
+        ``*_util_*`` schema bench.py documents and benchgate gates."""
+        wins = self.snapshot(now=now)
+        win = wins.get(f"verify:{queue}") or wins.get(f"sign:{queue}")
+        if win is None:
+            return {}
+        dec = self.decompose(win)
+        return {
+            f"{prefix}_util_busy": round(dec.busy_fraction, 4),
+            f"{prefix}_util_fill": round(dec.fill_efficiency, 4),
+            f"{prefix}_util_useful": round(dec.useful_fraction, 4),
+            f"{prefix}_util_effective_per_sec": round(
+                dec.effective_per_sec, 1
+            ),
+            f"{prefix}_util_per_device_per_sec": round(
+                dec.per_device_effective_per_sec, 1
+            ),
+            f"{prefix}_util_ceiling_per_sec": round(dec.ceiling_per_sec, 1),
+            f"{prefix}_util_ceiling_source": dec.ceiling_source,
+            f"{prefix}_util_idle_s": round(win.idle_s, 3),
+            f"{prefix}_util_lanes_useful": win.useful_lanes,
+            f"{prefix}_util_lanes_padding": win.padded_lanes,
+            f"{prefix}_util_lanes_memo": win.memo_lanes,
+            f"{prefix}_util_lanes_fallback": win.fallback_lanes,
+        }

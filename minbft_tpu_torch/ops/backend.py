@@ -40,18 +40,29 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_ext")
 
 # One shared library per kernel source (the P-256 ones include
 # field.cuh, the Ed25519 ones ed25519.cuh over it, the SHA-256 ones
-# sha256.cuh), with the C signature of its launch function: every
+# sha256.cuh), with the C signature of each of its launch functions: every
 # pointer and the stream as c_void_p, counts as c_int, an int return
 # (cudaGetLastError()).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LAUNCHERS = {
-    "field_op": ("mbt_field_op", [_I, _I, _P, _P, _P, _I, _P]),
-    "p256_verify": ("mbt_p256_verify", [_P, _P, _I, _P]),
-    "p256_kg": ("mbt_p256_kg", [_P, _P, _P, _I, _P]),
-    "sha256_compress": ("mbt_sha256_compress", [_P, _P, _P, _I, _P]),
-    "hmac_sha256": ("mbt_hmac_sha256_verify", [_P, _P, _I, _P]),
-    "ed25519_verify": ("mbt_ed25519_verify", [_P, _P, _I, _P]),
-    "ed25519_rb": ("mbt_ed25519_rb", [_P, _P, _P, _I, _P]),
+    "field_op": {"mbt_field_op": [_I, _I, _P, _P, _P, _I, _P]},
+    "p256_verify": {
+        "mbt_p256_verify": [_P, _P, _I, _P],
+        "mbt_p256_verify_arrays": [_P] * 9 + [_I, _P],
+    },
+    "p256_kg": {"mbt_p256_kg": [_P, _P, _P, _I, _P]},
+    "p256_kg_ladder": {"mbt_p256_kg_ladder": [_P, _P, _I, _P]},
+    "sha256_compress": {"mbt_sha256_compress": [_P, _P, _P, _I, _P]},
+    "hmac_sha256": {
+        "mbt_hmac_sha256_verify": [_P, _P, _I, _P],
+        "mbt_hmac_sha256_verify_arrays": [_P, _P, _P, _P, _I, _P],
+        "mbt_hmac_sha256_sign": [_P, _P, _P, _I, _P],
+    },
+    "ed25519_verify": {
+        "mbt_ed25519_verify": [_P, _P, _I, _P],
+        "mbt_ed25519_verify_arrays": [_P] * 8 + [_I, _P],
+    },
+    "ed25519_rb": {"mbt_ed25519_rb": [_P, _P, _P, _I, _P]},
 }
 SOURCES = tuple(LAUNCHERS)
 
@@ -165,10 +176,10 @@ class _Extension:
                 lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
                 lib.mbt_error_string.argtypes = [ctypes.c_int]
                 lib.mbt_error_string.restype = ctypes.c_char_p
-                fn_name, argtypes = LAUNCHERS[name]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for fn_name, argtypes in LAUNCHERS[name].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 self._libs[name] = lib
         self.build_dir = out_dir
         self.build_seconds = time.perf_counter() - t0

@@ -1,5 +1,6 @@
 """Batched Ed25519: host prep, plain PyTorch versions and the wrappers of
-kernels K7 (verify) and K8 (fixed-base r·B).
+kernels K7 (verify over packed rows), K7' (the same verify over
+``prepare_batch``'s seven arrays) and K8 (fixed-base r·B).
 
 Port of :mod:`minbft_tpu.ops.ed25519` (BASELINE config 5: n = 31, bucket
 1,024).  Division of labour as in the reference: the host computes the
@@ -123,16 +124,26 @@ def _bits_of(scalar: torch.Tensor) -> torch.Tensor:
 
 def verify_packed_plain(rows: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K7: [B, 82] packed rows (any integer
-    dtype) -> [B] bool, the reference's ``_verify_one_packed`` per lane."""
-    f = FIELD
-    rows = rows.to(torch.int64)
-    b = rows.shape[0]
-    dev = rows.device
+    dtype) -> [B] bool, the reference's ``_verify_one_packed`` per lane:
+    the row sliced into :func:`verify_plain`'s seven arrays."""
     nl = limbs.NLIMBS
-    ax, ay = rows[:, 0:nl], rows[:, nl : 2 * nl]
-    u1, u2 = rows[:, 2 * nl : 3 * nl], rows[:, 3 * nl : 4 * nl]
-    ry = rows[:, 4 * nl : 5 * nl]
-    rsign, valid = rows[:, 5 * nl], rows[:, 5 * nl + 1] != 0
+    cols = [rows[:, k * nl : (k + 1) * nl] for k in range(5)]
+    return verify_plain(*cols, rows[:, 5 * nl], rows[:, 5 * nl + 1] != 0)
+
+
+def verify_plain(ax, ay, u1, u2, ry, rsign, valid) -> torch.Tensor:
+    """Plain PyTorch version of K7' (and, through
+    :func:`verify_packed_plain`, of K7): ax, ay, u1, u2, ry [B, 16] limbs
+    (any integer dtype), rsign [B] (int32 bit patterns of u32 values
+    included), valid [B] (nonzero = set) -> [B] bool, the reference's
+    ``_verify_one`` per lane."""
+    f = FIELD
+    ax, ay, u1, u2, ry = (t.to(torch.int64) for t in (ax, ay, u1, u2, ry))
+    rsign = rsign.to(torch.int64) & 0xFFFFFFFF
+    valid = valid != 0
+    b = ax.shape[0]
+    dev = ax.device
+    nl = limbs.NLIMBS
 
     r2 = limbs.fe_tensor(np.array(f.r2_mod, np.uint32), dev)
     ax_m, ay_m = mont_mul_many(f, [(ax, r2), (ay, r2)])
@@ -193,6 +204,46 @@ def ed25519_verify_kernel_packed(rows: torch.Tensor) -> torch.Tensor:
 
 
 ed25519_verify_kernel_packed.launches = 0
+
+_VERIFY_LIMB_ARGS = ("ax", "ay", "u1", "u2", "ry")
+
+
+def ed25519_verify_kernel(ax, ay, u1, u2, ry, rsign, valid) -> torch.Tensor:
+    """Batched Ed25519 verify over :func:`prepare_batch`'s seven arrays ->
+    [B] bool (the reference's ``ed25519_verify_kernel``).
+
+    CPU: the plain version (any integer dtypes).  CUDA: K7'
+    (``csrc/ed25519_verify.cu``, K7's lane function over the arrays) on
+    PyTorch's current stream; the five limb arrays must be contiguous
+    [B, 16] int32 tensors of u32 limbs (each < 2^16), rsign a contiguous
+    [B] int32 tensor of u32 bits and valid a contiguous [B] bool tensor,
+    all on one device."""
+    arrays = (ax, ay, u1, u2, ry, rsign, valid)
+    dev = ax.device
+    if any(a.device != dev for a in arrays):
+        raise ValueError("ed25519_verify_kernel: arrays on different devices")
+    if dev.type == "cpu":
+        return verify_plain(*arrays)
+    if dev.type != "cuda":
+        raise ValueError(f"ed25519_verify_kernel: unsupported device {dev}")
+    n = ax.shape[0]
+    for name, a in zip(_VERIFY_LIMB_ARGS, arrays[:5]):
+        backend.require(a, torch.int32, (n, limbs.NLIMBS), f"ed25519 verify {name}")
+    backend.require(rsign, torch.int32, (n,), "ed25519 verify rsign")
+    backend.require(valid, torch.bool, (n,), "ed25519 verify valid")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = backend.EXTENSION.library("ed25519_verify")
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = lib.mbt_ed25519_verify_arrays(
+            *(backend.ptr(a) for a in arrays), backend.ptr(out), n,
+            backend.current_stream(dev),
+        )
+    backend.check(lib, rc, "ed25519_verify_arrays")
+    backend.count_launch(ed25519_verify_kernel)
+    return out
+
+
+ed25519_verify_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------

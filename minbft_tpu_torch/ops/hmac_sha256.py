@@ -1,5 +1,6 @@
-"""Batched HMAC-SHA256 verify over fixed 32-byte inputs: the plain
-PyTorch version and the wrapper of kernel K6.
+"""Batched HMAC-SHA256 over fixed 32-byte inputs: the plain PyTorch
+versions and the wrappers of kernels K6 (packed verify), K6' (verify over
+three arrays) and K6s (MAC generation).
 
 Port of :mod:`minbft_tpu.ops.hmac_sha256`.  Key = 32 bytes, message = a
 32-byte digest, so one HMAC is exactly four SHA-256 compressions (RFC 2104
@@ -8,9 +9,11 @@ with a 64-byte block):
     inner = H( (key ^ ipad) || msg32 || pad )   - 2 compressions
     mac   = H( (key ^ opad) || inner || pad )   - 2 compressions
 
-A batch is ``[B, 24]`` u32 rows of key | msg | mac as big-endian words
-(the engine's staging layout); the result is ``[B]`` bool.  The CUDA
-kernel is ``csrc/hmac_sha256.cu``; it inlines K5 (``csrc/sha256.cuh``).
+K6's batch is ``[B, 24]`` u32 rows of key | msg | mac as big-endian words
+(the engine's staging layout); K6' takes the three ``[B, 8]`` arrays and
+K6s keys and msgs, as the reference's bench does.  The CUDA kernels are in
+``csrc/hmac_sha256.cu``; they share one ``hmac32`` and inline K5
+(``csrc/sha256.cuh``).
 """
 
 from __future__ import annotations
@@ -79,3 +82,90 @@ def hmac_verify_kernel_packed(rows: torch.Tensor) -> torch.Tensor:
 
 
 hmac_verify_kernel_packed.launches = 0
+
+
+def hmac_sign_plain(keys: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
+    """The plain version of K6s: keys, msgs [B, 8] u32 words (any integer
+    dtype, int32 bit patterns included) -> macs [B, 8] int64 words."""
+    return hmac32(keys, msgs)
+
+
+def hmac_verify_plain3(
+    keys: torch.Tensor, msgs: torch.Tensor, macs: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of K6': keys, msgs, macs [B, 8] u32 words -> [B]
+    bool."""
+    return (hmac32(keys, msgs) == _u64(macs)).all(dim=1)
+
+
+def _require_words(arrays, names, what: str) -> int:
+    """Wrapper-side checks of [B, 8] int32 word arrays on one CUDA device,
+    each 16-byte aligned (the kernels read 16-byte words); returns B."""
+    dev = arrays[0].device
+    n = arrays[0].shape[0]
+    for a, name in zip(arrays, names):
+        if a.device != dev:
+            raise ValueError(f"{what}: arrays on different devices")
+        backend.require(a, torch.int32, (n, 8), f"{what} {name}")
+        if a.data_ptr() % 16:
+            raise ValueError(f"{what} {name}: storage must be 16-byte aligned")
+    return n
+
+
+def hmac_verify_kernel(
+    keys: torch.Tensor, msgs: torch.Tensor, macs: torch.Tensor
+) -> torch.Tensor:
+    """Batched HMAC-SHA256 verify over three [B, 8] word arrays -> [B] bool
+    (the reference's ``hmac_verify_kernel``).
+
+    CPU: the plain version.  CUDA: K6' (``csrc/hmac_sha256.cu``, K6's
+    ``hmac32`` over the arrays) on PyTorch's current stream; each array a
+    contiguous [B, 8] int32 tensor of u32 bits, 16-byte aligned."""
+    dev = keys.device
+    if dev.type == "cpu" and msgs.device == dev and macs.device == dev:
+        return hmac_verify_plain3(keys, msgs, macs)
+    if dev.type != "cuda":
+        raise ValueError(f"hmac_verify_kernel: unsupported device {dev}")
+    n = _require_words((keys, msgs, macs), ("keys", "msgs", "macs"), "hmac verify")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = backend.EXTENSION.library("hmac_sha256")
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = lib.mbt_hmac_sha256_verify_arrays(
+            backend.ptr(keys), backend.ptr(msgs), backend.ptr(macs),
+            backend.ptr(out), n, backend.current_stream(dev),
+        )
+    backend.check(lib, rc, "hmac_sha256_verify_arrays")
+    backend.count_launch(hmac_verify_kernel)
+    return out
+
+
+hmac_verify_kernel.launches = 0
+
+
+def hmac_sign_kernel(keys: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
+    """Batched HMAC-SHA256 generation: keys, msgs [B, 8] words -> macs
+    [B, 8] (the reference's ``hmac_sign_kernel``).
+
+    CPU: the plain version (int64 words).  CUDA: K6s
+    (``csrc/hmac_sha256.cu``) on PyTorch's current stream; each input a
+    contiguous [B, 8] int32 tensor of u32 bits, 16-byte aligned; the MACs
+    come back as int32 bit patterns."""
+    dev = keys.device
+    if dev.type == "cpu" and msgs.device == dev:
+        return hmac_sign_plain(keys, msgs)
+    if dev.type != "cuda":
+        raise ValueError(f"hmac_sign_kernel: unsupported device {dev}")
+    n = _require_words((keys, msgs), ("keys", "msgs"), "hmac sign")
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    lib = backend.EXTENSION.library("hmac_sha256")
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = lib.mbt_hmac_sha256_sign(
+            backend.ptr(keys), backend.ptr(msgs), backend.ptr(out), n,
+            backend.current_stream(dev),
+        )
+    backend.check(lib, rc, "hmac_sha256_sign")
+    backend.count_launch(hmac_sign_kernel)
+    return out
+
+
+hmac_sign_kernel.launches = 0

@@ -228,6 +228,19 @@ def _consts(modulus: int, device: str):
     }
 
 
+def arrays_to(arrays, device) -> tuple:
+    """Host prep's numpy arrays (``prepare_batch``'s) as the multi-array
+    kernels' tensors on ``device``: bool arrays stay bool, the others (u32
+    limbs and words) become int32 tensors of the same bits."""
+    return tuple(
+        torch.from_numpy(
+            a if a.dtype == np.bool_
+            else np.ascontiguousarray(a, np.uint32).view(np.int32)
+        ).to(device)
+        for a in map(np.asarray, arrays)
+    )
+
+
 def fe_tensor(x, device="cpu") -> torch.Tensor:
     """Limb rows (numpy, tensor of any int dtype, or a Python int) ->
     int64 tensor on ``device``."""

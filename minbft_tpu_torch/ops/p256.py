@@ -1,20 +1,23 @@
 """Batched ECDSA-P256: host prep, plain PyTorch versions and the wrappers
-of kernels K2 (verify) and K3 (fixed-base k·G).
+of kernels K2 (verify over packed rows), K2' (the same verify over
+``prepare_batch``'s eight arrays), K3 (fixed-base k·G comb) and K4 (k·G
+by the double-then-add ladder, K3's differential reference).
 
 Port of :mod:`minbft_tpu.ops.p256`.  Division of labour as in the
 reference: the host hashes, inverts s once per batch (Montgomery batch
 inversion), range-checks and packs one ``[B, 98]`` u16 row per lane
 (:func:`prepare_packed`); the device runs the 256-step interleaved Shamir
 ladder u1·G + u2·Q and the affine-free check X == r·Z² (K2), or the
-64-window fixed-base comb k·G for signing (K3).
+64-window fixed-base comb k·G for signing (K3); K4 computes the same
+(X, Z) as the reference's 256-step ladder.
 
 Adversarial-input policy (unchanged from the reference): the mixed
 addition is incomplete; the kernel flags its undefined case (``exc``) and
 rejects the lane, so the kernel only ever errs toward rejection.  Both
 the plain versions below and the CUDA kernels (``csrc/p256_verify.cu``,
-``csrc/p256_kg.cu``) use the reference's exact point formulas and
-selects, so their verdicts and (X, Z) bits equal the reference's on every
-lane, adversarial ones included.
+``csrc/p256_kg.cu``, ``csrc/p256_kg_ladder.cu``) use the reference's
+exact point formulas and selects, so their verdicts and (X, Z) bits equal
+the reference's on every lane, adversarial ones included.
 
 Wrappers take CPU tensors to the plain version and CUDA tensors to the
 kernel; any other device raises.
@@ -141,16 +144,24 @@ def _bits_of(scalar: torch.Tensor) -> torch.Tensor:
 
 def verify_packed_plain(rows: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2: [B, 98] packed rows (any integer
-    dtype) -> [B] bool, the reference's ``_verify_one_packed`` per lane."""
-    f = FIELD
-    rows = rows.to(torch.int64)
-    b = rows.shape[0]
-    dev = rows.device
+    dtype) -> [B] bool, the reference's ``_verify_one_packed`` per lane:
+    the row sliced into :func:`verify_plain`'s eight arrays."""
     L = limbs.NLIMBS
-    qx, qy = rows[:, 0:L], rows[:, L : 2 * L]
-    u1, u2 = rows[:, 2 * L : 3 * L], rows[:, 3 * L : 4 * L]
-    rr, r2 = rows[:, 4 * L : 5 * L], rows[:, 5 * L : 6 * L]
-    r2_ok, valid = rows[:, 6 * L] != 0, rows[:, 6 * L + 1] != 0
+    cols = [rows[:, k * L : (k + 1) * L] for k in range(6)]
+    return verify_plain(*cols, rows[:, 6 * L] != 0, rows[:, 6 * L + 1] != 0)
+
+
+def verify_plain(qx, qy, u1, u2, rr, r2, r2_ok, valid) -> torch.Tensor:
+    """Plain PyTorch version of K2' (and, through
+    :func:`verify_packed_plain`, of K2): qx, qy, u1, u2, r, r2 [B, 16]
+    limbs (any integer dtype), r2_ok and valid [B] (nonzero = set) ->
+    [B] bool, the reference's ``_verify_one`` per lane."""
+    f = FIELD
+    qx, qy, u1, u2, rr, r2 = (t.to(torch.int64) for t in (qx, qy, u1, u2, rr, r2))
+    r2_ok, valid = r2_ok != 0, valid != 0
+    b = qx.shape[0]
+    dev = qx.device
+    L = limbs.NLIMBS
 
     one = mont_one(f, dev).expand(b, L)
     gx = limbs.fe_tensor(_GX_M, dev).expand(b, L)
@@ -214,6 +225,45 @@ def ecdsa_verify_kernel_packed(rows: torch.Tensor) -> torch.Tensor:
 
 
 ecdsa_verify_kernel_packed.launches = 0
+
+_VERIFY_LIMB_ARGS = ("qx", "qy", "u1", "u2", "r", "r2")
+
+
+def ecdsa_verify_kernel(qx, qy, u1, u2, rr, r2, r2_ok, valid) -> torch.Tensor:
+    """Batched ECDSA-P256 verify over :func:`prepare_batch`'s eight arrays
+    -> [B] bool (the reference's ``ecdsa_verify_kernel``, ``_verify_batch``).
+
+    CPU: the plain version (any integer dtypes).  CUDA: K2'
+    (``csrc/p256_verify.cu``, K2's lane function over the arrays) on
+    PyTorch's current stream; the six limb arrays must be contiguous
+    [B, 16] int32 tensors of u32 limbs (each < 2^16), r2_ok and valid
+    contiguous [B] bool tensors, all on one device."""
+    arrays = (qx, qy, u1, u2, rr, r2, r2_ok, valid)
+    dev = qx.device
+    if any(a.device != dev for a in arrays):
+        raise ValueError("ecdsa_verify_kernel: arrays on different devices")
+    if dev.type == "cpu":
+        return verify_plain(*arrays)
+    if dev.type != "cuda":
+        raise ValueError(f"ecdsa_verify_kernel: unsupported device {dev}")
+    n = qx.shape[0]
+    for name, a in zip(_VERIFY_LIMB_ARGS, arrays[:6]):
+        backend.require(a, torch.int32, (n, limbs.NLIMBS), f"verify {name}")
+    backend.require(r2_ok, torch.bool, (n,), "verify r2_ok")
+    backend.require(valid, torch.bool, (n,), "verify valid")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = backend.EXTENSION.library("p256_verify")
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = lib.mbt_p256_verify_arrays(
+            *(backend.ptr(a) for a in arrays), backend.ptr(out), n,
+            backend.current_stream(dev),
+        )
+    backend.check(lib, rc, "p256_verify_arrays")
+    backend.count_launch(ecdsa_verify_kernel)
+    return out
+
+
+ecdsa_verify_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -365,10 +415,11 @@ def prepare_batch(
 
 def verify_batch(items, device=None) -> np.ndarray:
     """Convenience wrapper: prepare on host, verify on ``device`` (default
-    ``cuda:0``) -> [B] bool."""
+    ``cuda:0``) through the eight-array form, as the reference's does ->
+    [B] bool."""
     dev = backend.resolve_device(device)
-    rows = torch.from_numpy(pack_arrays(prepare_batch(items))).to(dev)
-    return ecdsa_verify_kernel_packed(rows).cpu().numpy()
+    arrays = limbs.arrays_to(prepare_batch(items), dev)
+    return ecdsa_verify_kernel(*arrays).cpu().numpy()
 
 
 # Packed I/O: one u16 row per lane (limb values are 16-bit by
@@ -529,6 +580,59 @@ def ecdsa_kg_kernel(k: torch.Tensor) -> torch.Tensor:
 
 
 ecdsa_kg_kernel.launches = 0
+
+
+def kg_ladder_plain(k: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4, the reference's ``_kg_one`` per lane:
+    [B, 16] nonce limbs (any integer dtype) -> [B, 2, 16] int64 (X, Z),
+    Jacobian, Montgomery domain, by 256 steps of double then mixed add of
+    G (skipped by ``q_inf`` for a 0 bit) from bit 255 down; ``exc`` folds
+    to Z = 0."""
+    k = k.to(torch.int64)
+    b = k.shape[0]
+    dev = k.device
+    L = limbs.NLIMBS
+    bits = _bits_of(k)
+    one = mont_one(FIELD, dev).expand(b, L)
+    gx = limbs.fe_tensor(_GX_M, dev).expand(b, L)
+    gy = limbs.fe_tensor(_GY_M, dev).expand(b, L)
+    acc = (one, one, torch.zeros_like(one))
+    exc = torch.zeros(b, dtype=torch.bool, device=dev)
+    for j in range(255, -1, -1):
+        acc = _dbl(acc)
+        acc, e = _madd(acc, gx, gy, bits[:, j] == 0)
+        exc = exc | e
+    z = fe_select(exc, torch.zeros_like(acc[2]), acc[2])
+    return torch.stack([acc[0], z], dim=1)
+
+
+def ecdsa_kg_ladder_kernel(k: torch.Tensor) -> torch.Tensor:
+    """Batched k*G by the double-then-add ladder (the reference's
+    ``ecdsa_kg_ladder_kernel``, K3's differential reference): [B, 16]
+    uint16 nonce limbs -> [B, 2, 16] uint16 (X, Z), Jacobian, Montgomery
+    domain: K3's layout, so :func:`sign_finish` takes either kernel's
+    output.  The values equal the reference's u32 output bit for bit.
+
+    CPU: the plain version.  CUDA: K4 (``csrc/p256_kg_ladder.cu``, one
+    thread per lane) on the current stream."""
+    if k.device.type == "cpu":
+        return kg_ladder_plain(k).to(torch.uint16)
+    if k.device.type != "cuda":
+        raise ValueError(f"ecdsa_kg_ladder_kernel: unsupported device {k.device}")
+    n = k.shape[0]
+    backend.require(k, torch.uint16, (n, limbs.NLIMBS), "kg ladder nonces")
+    out = torch.empty((n, 2, limbs.NLIMBS), dtype=torch.uint16, device=k.device)
+    lib = backend.EXTENSION.library("p256_kg_ladder")
+    with torch.cuda.device(k.device):  # the launch goes to the current device
+        rc = lib.mbt_p256_kg_ladder(
+            backend.ptr(k), backend.ptr(out), n, backend.current_stream(k.device)
+        )
+    backend.check(lib, rc, "p256_kg_ladder")
+    backend.count_launch(ecdsa_kg_ladder_kernel)
+    return out
+
+
+ecdsa_kg_ladder_kernel.launches = 0
 
 _batch_inv = limbs.batch_inv_host
 

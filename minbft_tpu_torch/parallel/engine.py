@@ -200,6 +200,11 @@ class _DispatchQueue:
         self.pending: List[Tuple[object, asyncio.Future, int]] = []
         self._flush_handle: Optional[asyncio.Handle] = None
         self.inflight = 0
+        # High-water mark of len(pending) since the last peak snapshot:
+        # the point-in-time depth gauge misses every burst between
+        # samples.  Updated loop-side in _schedule_flush (every growth
+        # path runs through it); read and rearmed by queue_depth_peaks.
+        self.peak_depth = 0
         # Strong refs to in-flight _run tasks: the loop keeps
         # only a weak reference to a running task, so without this set a
         # dispatch task is GC-able mid-flight.
@@ -280,6 +285,10 @@ class _DispatchQueue:
 
     def _schedule_flush(self, fut: asyncio.Future) -> asyncio.Future:
         loop = asyncio.get_running_loop()
+        # Peak BEFORE any flush decision: every submit lands here with its
+        # items already appended, before _flush_now pops them.
+        if len(self.pending) > self.peak_depth:
+            self.peak_depth = len(self.pending)
         if len(self.pending) >= self.engine.max_batch:
             self._flush_now("full")
         elif self.inflight == 0 and self._flush_handle is None:
@@ -390,6 +399,16 @@ class _SchemeQueue(_DispatchQueue):
         return outs
 
     def _enqueue(self, item) -> "asyncio.Future | _Resolved":
+        if not self.engine.dedup:
+            # Measurement mode: every submission occupies its own device
+            # lane (no memo, no in-flight coalescing), so device traffic
+            # equals the protocol's logical verification demand.  Equal
+            # items in one batch resolve together on the first lane's pop
+            # (the same pure-function verdict).
+            fut = asyncio.get_running_loop().create_future()
+            self._inflight_futs.setdefault(item, []).append(fut)
+            self.pending.append((item, fut, time.monotonic_ns()))
+            return fut
         verdict = self._memo.get(item)
         if verdict is None:
             verdict = self._neg_memo.get(item)
@@ -421,12 +440,14 @@ class _SchemeQueue(_DispatchQueue):
                     fut.set_exception(e)
 
     def _resolve(self, batch, results, on_host: bool) -> None:
+        dedup = self.engine.dedup
         for (it, _f, _t), ok in zip(batch, results):
             ok = bool(ok)
-            # Pure function: verdicts (both ways) are stable — but they
-            # age out of segregated LRUs so garbage cannot evict good.
-            memo = self._memo if ok else self._neg_memo
-            memo[it] = ok
+            if dedup:
+                # Pure function: verdicts (both ways) are stable — but they
+                # age out of segregated LRUs so garbage cannot evict good.
+                memo = self._memo if ok else self._neg_memo
+                memo[it] = ok
             for fut in self._inflight_futs.pop(it, ()):
                 if not fut.done():
                     fut.set_result(ok)
@@ -499,7 +520,10 @@ class BatchVerifier:
     flush to coalesce more items (0 = flush on the next event-loop turn);
     ``max_inflight`` bounds concurrent dispatches per scheme (2 keeps the
     device fed while the next batch accumulates).  ``dispatch_timeout``
-    fails a batch whose dispatch runs longer (0 disables).
+    fails a batch whose dispatch runs longer (0 disables).  ``dedup=False``
+    is a measurement mode: every submitted verification takes its own
+    device lane (no memo, no in-flight coalescing), so the device's
+    verifies equal the protocol's demand; deployments keep it on.
     ``sign_on_device`` matters only on the CPU: there ``None``/False signs
     with the serial host signer and True with the plain k*G / r*B; a
     CUDA engine always signs with K3 and K8 (False raises
@@ -515,6 +539,7 @@ class BatchVerifier:
         max_inflight: int = 2,
         mesh=None,
         dispatch_timeout: float = 90.0,
+        dedup: bool = True,
         sign_on_device: Optional[bool] = None,
         device=None,
     ):
@@ -542,6 +567,7 @@ class BatchVerifier:
         # A dispatch that exceeds this many seconds is abandoned and its
         # batch fails; see _DispatchQueue._dispatch_timed.  0 disables.
         self.dispatch_timeout = dispatch_timeout
+        self.dedup = dedup
         # Stats fields are owned per-field: the event loop owns the counts
         # _run updates; padded_lanes and host_prep_time_s are updated by
         # the DISPATCHER on a worker thread, under this lock (_note_prep).
@@ -654,6 +680,35 @@ class BatchVerifier:
     @property
     def sign_stats(self) -> Dict[str, SignStats]:
         return {name: q.stats for name, q in dict(self._sign_queues).items()}
+
+    def queue_depths(self) -> Dict[str, int]:
+        """Items pending per verify queue right now (a gauge).  dict()
+        snapshots the queue map first: a sampler thread may iterate while
+        the loop inserts a new queue."""
+        return {name: len(q.pending) for name, q in dict(self._queues).items()}
+
+    def sign_queue_depths(self) -> Dict[str, int]:
+        return {name: len(q.pending) for name, q in dict(self._sign_queues).items()}
+
+    @staticmethod
+    def _depth_peaks(queues, reset: bool) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for name, q in dict(queues).items():
+            out[name] = max(q.peak_depth, len(q.pending))
+            if reset:
+                q.peak_depth = len(q.pending)
+        return out
+
+    def queue_depth_peaks(self, reset: bool = True) -> Dict[str, int]:
+        """High-water mark of each verify queue's depth since the last
+        snapshot; ``reset`` rearms the mark at the current depth.  The
+        read and the rearm are each GIL-atomic, so a burst landing
+        between them shows in the next snapshot."""
+        return self._depth_peaks(self._queues, reset)
+
+    def sign_queue_depth_peaks(self, reset: bool = True) -> Dict[str, int]:
+        """:meth:`queue_depth_peaks` of the sign queues."""
+        return self._depth_peaks(self._sign_queues, reset)
 
     # -- public API ---------------------------------------------------------
 

@@ -1,0 +1,62 @@
+"""Event-loop policy selection: optional uvloop for the hot loops.
+
+The batch-ingest runtime moves decode/verify off the per-message task
+path, which leaves asyncio's own per-task/per-callback bookkeeping as a
+visible cost on the 1-core bench hosts.  uvloop (libuv's loop behind the
+asyncio API) cuts exactly that constant — when it is installed (the
+``perf`` extra in pyproject.toml) and the operator opts in.
+
+Knob: ``MINBFT_UVLOOP``
+
+- unset or ``auto`` — use uvloop when importable, silently fall back to
+  the stdlib loop when not (the bare image does not ship it);
+- ``1/true/yes`` — require it: a missing install logs a warning and
+  falls back (never crashes a replica over a perf knob);
+- ``0/false/no`` — stdlib loop, even when uvloop is installed.
+
+Call :func:`maybe_enable_uvloop` BEFORE ``asyncio.run`` — it installs
+the event-loop policy, which only affects loops created afterwards.
+``peer run`` and bench.py both do; tests exercise both loops via the
+same knob (tests/conftest.py, CI's uvloop step).
+
+Port of :mod:`minbft_tpu.utils.loop` (a copy).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+UVLOOP_ENV = "MINBFT_UVLOOP"
+
+
+def uvloop_requested() -> "bool | None":
+    """Tri-state read of MINBFT_UVLOOP: True (required), False (off),
+    None (auto — use when available)."""
+    val = os.environ.get(UVLOOP_ENV, "").strip().lower()
+    if val in ("", "auto"):
+        return None
+    if val in ("0", "false", "no"):
+        return False
+    return True
+
+
+def maybe_enable_uvloop() -> bool:
+    """Install the uvloop event-loop policy per MINBFT_UVLOOP; returns
+    True when uvloop will drive subsequently-created loops."""
+    want = uvloop_requested()
+    if want is False:
+        return False
+    try:
+        import uvloop
+    except ImportError:
+        if want:  # explicitly required but absent: say so, don't crash
+            logging.getLogger("minbft.loop").warning(
+                "MINBFT_UVLOOP=1 but uvloop is not installed "
+                "(pip install 'minbft_tpu[perf]'): using the stdlib loop"
+            )
+        return False
+    import asyncio
+
+    asyncio.set_event_loop_policy(uvloop.EventLoopPolicy())
+    return True

@@ -51,18 +51,19 @@ _TIMEOUT = 60.0
 
 
 async def _commit(
-    port_ids, keys, f, ops_by_client, client_sides, port_auths=None, settled=lambda: True
+    port_ids, keys, f, ops_by_client, client_sides, port_auths=None, settled=lambda: True,
+    ref_auths=None,
 ):
     """Start an n-replica cluster on the port's stubs, replica i from the
     port if ``i in port_ids`` else from the reference, one client per
     entry of ``client_sides`` ("port" or "ref"); each client commits its
-    operations serially.  The port's side takes ``port_auths`` (replica
-    and client authenticators) if given, else host authenticators from
-    ``keys``.  The cluster stops once every ledger holds every operation
+    operations serially.  Each side takes ``port_auths`` / ``ref_auths``
+    (replica and client authenticators) if given, else host
+    authenticators from ``keys``.  The cluster stops once every ledger holds every operation
     and ``settled()`` is true.  Returns (replies per client, ledgers)."""
     n = keys["n"]
     port_r, port_c = port_auths or authenticators_from_keys(keys)
-    ref_r, ref_c, _ = _reference_authenticators(keys)
+    ref_r, ref_c = ref_auths or _reference_authenticators(keys)[:2]
     stubs = make_testnet_stubs(n)
     ledgers, replicas = [], []
     for i in range(n):

@@ -11,7 +11,8 @@ oracles.
   key, bit-flipped R, S + L, non-canonical R with y >= p, undecodable
   public key, wrong-length signature) and on an empty batch;
 - plain K7 against the reference's ``ed25519_verify_kernel_packed`` and
-  ``hostcrypto.ed25519_verify_py``; plain K8 against the reference's
+  ``hostcrypto.ed25519_verify_py``; plain K7' (seven arrays) against the
+  reference's packed form on the same lanes; plain K8 against the reference's
   ``ed25519_rb_kernel`` bit for bit, and the comb tables;
 - ``sign_batch`` against ``hostcrypto.ed25519_sign`` and the reference's
   ``sign_batch``;
@@ -157,6 +158,27 @@ def test_plain_verify_matches_reference_kernel_and_host(lanes, rows, plain_verdi
     assert list(plain_verdicts) == expected + [False] * 4
 
 
+def test_plain_verify_arrays_match_reference_kernel(lanes, rows, plain_verdicts):
+    """K7''s plain version (the seven arrays of ``prepare_batch``) on the
+    16 lanes of ``rows``, adversarial lanes and pad rows included, against
+    the reference's packed ``ed25519_verify_kernel_packed`` on the same
+    lanes (in two halves of 8), not its seven-array
+    ``ed25519_verify_kernel``: both call the reference's ``_verify_one``
+    (minbft_tpu/ops/ed25519.py), and the packed form is compiled at this
+    shape already, where the seven-array one would cost a compile of its
+    own (~40 s on the CPU).  Its verdicts also equal plain K7's."""
+    arrays = port.prepare_batch(lanes[0], 16)
+    assert np.array_equal(port.pack_arrays(arrays), rows)
+    got = port.ed25519_verify_kernel(*limbs.arrays_to(arrays, "cpu")).numpy()
+    want = np.concatenate([
+        np.asarray(ref.ed25519_verify_kernel_packed(jnp.asarray(rows[k : k + 8])))
+        for k in (0, 8)
+    ])
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, plain_verdicts)
+    assert port.ed25519_verify_kernel.launches == 0
+
+
 def test_plain_rb_matches_reference_kernel_bit_for_bit(rows):
     nonces = np.ascontiguousarray(rows[:8, 32:48])  # u1 = S limbs as r
     nonces[5:] = limbs.to_limbs_batch([0, 1, hc.ED_L - 1])
@@ -186,6 +208,9 @@ def test_wrappers_default_to_cuda_and_reject_other_devices(monkeypatch):
         port.ed25519_verify_kernel_packed(meta)
     with pytest.raises(ValueError):
         port.ed25519_rb_kernel(meta[:, :16])
+    flags = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        port.ed25519_verify_kernel(*[meta[:, :16]] * 5, flags, flags != 0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         port.verify_batch([])
@@ -193,6 +218,7 @@ def test_wrappers_default_to_cuda_and_reject_other_devices(monkeypatch):
         port.sign_batch([(b"\x00" * 32, b"m")])
     assert port.ed25519_verify_kernel_packed.launches == 0
     assert port.ed25519_rb_kernel.launches == 0
+    assert port.ed25519_verify_kernel.launches == 0
 
 
 def test_engine_verify_queue_stages_the_reference_rows_and_dedups(monkeypatch, lanes):

@@ -3,13 +3,16 @@ the plain versions of kernels K2 and K3) against the JAX reference
 (minbft_tpu/ops/p256.py) and the host oracles.
 
 The same packed rows go through the reference's
-``ecdsa_verify_kernel_packed`` and the port's plain version: valid lanes,
+``ecdsa_verify_kernel_packed`` and ``_verify_batch`` (the eight-array
+form, K2') and the port's plain versions: valid lanes,
 the forged lanes of tests/test_p256.py (tampered digest, wrong key,
 r = 0, s = n, bit-flipped s), the keys Q = G and Q = -G (private keys 1
 and n-1, the exact doubling and negation cases of the G+Q table entry),
-and rows with r2_ok = 1 built directly.  The JAX oracle runs at the
-reference suite's own bucket shapes (8 verify rows, 16 nonces), so it
-compiles at most once per shape.  Everything is an integer: comparisons
+and rows with r2_ok = 1 built directly.  The ladder k*G (K4) is held against
+the reference's ``ecdsa_kg_ladder_kernel`` and, through ``sign_finish``,
+against the comb K3.  The JAX oracle runs at the reference suite's own
+bucket shapes (8 verify rows, 8 lanes of arrays, 16 nonces), so it
+compiles at most once per shape, except K4 (8 nonces).  Everything is an integer: comparisons
 are exact.  Inputs are made from a numpy seed."""
 
 import hashlib
@@ -144,6 +147,11 @@ def test_wrappers_default_to_cuda_and_reject_other_devices(monkeypatch):
         port.ecdsa_verify_kernel_packed(meta)
     with pytest.raises(ValueError):
         port.ecdsa_kg_kernel(meta[:, :16])
+    with pytest.raises(ValueError):
+        port.ecdsa_kg_ladder_kernel(meta[:, :16])
+    flags = torch.zeros(8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        port.ecdsa_verify_kernel(*[meta[:, :16]] * 6, flags, flags)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         port.verify_batch([])
@@ -151,6 +159,8 @@ def test_wrappers_default_to_cuda_and_reject_other_devices(monkeypatch):
         port.sign_batch([(1, b"\x00" * 32)])
     assert port.ecdsa_verify_kernel_packed.launches == 0
     assert port.ecdsa_kg_kernel.launches == 0
+    assert port.ecdsa_kg_ladder_kernel.launches == 0
+    assert port.ecdsa_verify_kernel.launches == 0
 
 
 def test_is_on_curve(lanes):
@@ -159,3 +169,52 @@ def test_is_on_curve(lanes):
     assert port.is_on_curve(x, y) and ref.is_on_curve(x, y)
     assert not port.is_on_curve(x, (y + 1) % hc.P)
     assert not port.is_on_curve(hc.P, 0)
+
+
+def _arrays_of(rows):
+    """[B, 98] packed rows -> the eight arrays of ``prepare_batch`` (u32
+    limbs, bool flags)."""
+    L = 16
+    limb_arrays = [rows[:, k * L : (k + 1) * L].astype(np.uint32) for k in range(6)]
+    return limb_arrays + [rows[:, 6 * L] != 0, rows[:, 6 * L + 1] != 0]
+
+
+def test_plain_verify_arrays_match_reference_verify_batch(rows, plain_verdicts):
+    """K2''s plain version against the reference's eight-array
+    ``_verify_batch`` at tests/test_p256.py's shape (8 lanes): the two
+    halves of the rows hold honest lanes, the forged ones (tampered
+    digest, wrong key, bit-flipped s), r = 0 and s = n (valid = 0), the
+    crafted r2_ok lanes and pad rows; its verdicts also equal K2's."""
+    arrays = _arrays_of(rows)
+    got = port.ecdsa_verify_kernel(*(torch.from_numpy(a) for a in arrays)).numpy()
+    want = np.concatenate([
+        np.asarray(ref._verify_batch(*(jnp.asarray(a[k : k + 8]) for a in arrays)))
+        for k in (0, 8)
+    ])
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, plain_verdicts)
+    assert port.ecdsa_verify_kernel.launches == 0
+
+
+def test_plain_kg_ladder_matches_reference_and_signs_like_the_comb():
+    """K4's plain version against the reference's
+    ``ecdsa_kg_ladder_kernel`` bit for bit at one shape of 8 lanes (k = 0,
+    1, 2, n - 1, one random k < n and three RFC 6979 nonces), and
+    ``sign_finish`` on its (X, Z) against ``sign_finish`` on K3's and the
+    host signer."""
+    rng = _SeededRng(4)
+    d = hc.keygen(rng)[0]
+    items = [(d, rng.digest()) for _ in range(3)]
+    k_sign, meta = port.sign_prepare(items, 3)
+    nonces = np.concatenate([
+        limbs.to_limbs_batch([0, 1, 2, hc.N - 1, rng.randbelow(hc.N)]), k_sign
+    ]).astype(np.uint16)
+    got = port.ecdsa_kg_ladder_kernel(torch.from_numpy(nonces))
+    want = np.asarray(ref.ecdsa_kg_ladder_kernel(nonces.astype(np.uint32)))
+    assert got.dtype == torch.uint16
+    assert np.array_equal(got.numpy(), want)
+    comb = port.ecdsa_kg_kernel(torch.from_numpy(k_sign)).numpy()
+    ladder_sigs = port.sign_finish(items, meta, got.numpy()[5:])
+    assert ladder_sigs == port.sign_finish(items, meta, comb)
+    assert ladder_sigs == [hc.ecdsa_sign_py(d, dg) for d, dg in items]
+    assert port.ecdsa_kg_ladder_kernel.launches == 0

@@ -1,11 +1,15 @@
-"""K5 (SHA-256 compression) and K6 (HMAC-SHA256 verify) of the port on
-the CPU, where their wrappers run the plain PyTorch versions, against the
+"""K5 (SHA-256 compression), K6 (HMAC-SHA256 verify) and its siblings K6'
+(verify over three arrays) and K6s (MAC generation) of the port on the
+CPU, where their wrappers run the plain PyTorch versions, against the
 JAX package and the standard library.
 
 - plain compression against the JAX ``compress_batch`` (16 random lanes)
   and multi-block digests through ``pad_message`` against ``hashlib``;
 - plain HMAC verify against the JAX ``hmac_verify_kernel_packed`` and
   Python's ``hmac`` on 16 lanes, forged lanes and zero rows included;
+- plain K6s and K6' against the JAX ``hmac_sign_kernel`` and
+  ``hmac_verify_kernel`` at tests/test_sha256.py's shapes, and Python's
+  ``hmac``;
 - the port engine's ``_dispatch_hmac`` against the reference engine's on
   the same items: the staged rows (padding lanes included) and the
   verdicts; and the port engine's ``verify_hmac_sha256`` queue.
@@ -145,3 +149,72 @@ def test_verify_hmac_sha256_queue_batches_and_dedups():
     assert (st.items, st.batches, st.memo_hits, st.padded_lanes) == (6, 1, 2, 2)
     assert st.dispatch_timeouts == 0
     assert [e[0] for e in engine.drain_obs_events()] == ["hmac_sha256"]
+
+
+def test_verify_hmac_sha256_queue_without_dedup_gives_every_submission_a_lane():
+    """``dedup=False`` (the reference's measurement mode, which the bench's
+    ``nodedup`` configurations use): repeats neither hit the memo nor
+    share a lane, in one batch or in the next."""
+    items = _items(4, 6)
+    engine = BatchVerifier(max_batch=8, buckets=(8,), dedup=False, device="cpu")
+
+    async def run(batch):
+        return await asyncio.gather(*[engine.verify_hmac_sha256(*it) for it in batch])
+
+    want = [i != 3 for i in range(6)]
+    assert asyncio.run(run(items + items[:2])) == want + [True, True]
+    assert asyncio.run(run(items[2:4])) == want[2:4]
+    st = engine.stats["hmac_sha256"]
+    assert (st.items, st.batches, st.memo_hits, st.padded_lanes) == (10, 2, 0, 6)
+
+
+def _py_macs(keys, msgs):
+    return np.stack([
+        np.frombuffer(
+            py_hmac.new(sha256.words_to_bytes(k), sha256.words_to_bytes(m),
+                        hashlib.sha256).digest(), dtype=">u4",
+        ).astype(np.uint32)
+        for k, m in zip(keys, msgs)
+    ])
+
+
+def test_plain_hmac_sign_matches_jax_and_python_hmac():
+    """K6s's plain version against the JAX ``hmac_sign_kernel`` at
+    tests/test_sha256.py's shape (33 lanes) and Python's ``hmac``."""
+    rng = np.random.default_rng(33)
+    keys, msgs = _u32(rng, 33, 8), _u32(rng, 33, 8)
+    got = hmac_sha256.hmac_sign_kernel(sha256.as_i32(keys), sha256.as_i32(msgs))
+    got = sha256.as_u32(got)
+    np.testing.assert_array_equal(got, np.asarray(ref_hmac.hmac_sign_kernel(keys, msgs)))
+    np.testing.assert_array_equal(got, _py_macs(keys, msgs))
+    assert hmac_sha256.hmac_sign_kernel.launches == 0
+
+
+def test_plain_hmac_verify_arrays_match_jax_and_python_hmac():
+    """K6''s plain version against the JAX ``hmac_verify_kernel`` at
+    tests/test_sha256.py's shape (16 lanes): honest lanes, a bit flipped
+    in every second mac, and the keys reversed."""
+    rng = np.random.default_rng(16)
+    keys, msgs = _u32(rng, _LANES, 8), _u32(rng, _LANES, 8)
+    macs = _py_macs(keys, msgs)
+    bad = macs.copy()
+    bad[::2, 3] ^= np.uint32(1 << 7)
+    for k, m, mac, want in (
+        (keys, msgs, macs, np.ones(_LANES, bool)),
+        (keys, msgs, bad, np.arange(_LANES) % 2 == 1),
+        (keys[::-1], msgs, macs, np.zeros(_LANES, bool)),
+    ):
+        got = hmac_sha256.hmac_verify_kernel(
+            *(sha256.as_i32(a) for a in (k, m, mac))
+        ).numpy()
+        np.testing.assert_array_equal(got, np.asarray(ref_hmac.hmac_verify_kernel(k, m, mac)))
+        np.testing.assert_array_equal(got, want)
+    assert hmac_sha256.hmac_verify_kernel.launches == 0
+
+
+def test_hmac_array_wrappers_reject_other_devices():
+    meta = torch.zeros((8, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        hmac_sha256.hmac_verify_kernel(meta, meta, meta)
+    with pytest.raises(ValueError):
+        hmac_sha256.hmac_sign_kernel(meta, meta)

@@ -292,6 +292,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import minbft_tpu_torch.core, minbft_tpu_torch.client\n"
         "import minbft_tpu_torch.sample.conn.inprocess, minbft_tpu_torch.sample.config\n"
         "import minbft_tpu_torch.ops.hmac_sha256, minbft_tpu_torch.ops.ed25519\n"
+        "import minbft_tpu_torch.bench, minbft_tpu_torch.obs.ledger\n"
+        "import minbft_tpu_torch.obs.timeseries, minbft_tpu_torch.utils.loop\n"
+        "import minbft_tpu_torch.sample.authentication.mac\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'minbft_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
