@@ -9,19 +9,28 @@ that does not hold:
 
 1. the card's name and power limit (``nvidia-smi``), the build time and
    ``torch.version.cuda``;
-2. K1 (field library, ``field_op`` test kernel) against the plain
-   PyTorch field ops, every op, mod the P-256 prime p, its order n and
-   the Ed25519 prime 2^255 - 19, 4,096 random and edge elements, exact;
+2. K1 (field libraries, ``field_op`` test kernel) against the plain
+   PyTorch field ops, every op, 4,096 random and edge elements, exact:
+   mod the P-256 prime p the ops specialised to p at one thread per lane
+   and in groups of 4 (the group's shared multiplies; mul, to_mont and
+   from_mont also on first operands in [p, 2^256)), mod its order n and
+   the Ed25519 prime 2^255 - 19 the generic ops;
 3. K2 (batched ECDSA-P256 verify) at B = 128 (cfg4's bucket), 512,
    16,384 and 32,768 (the bench's batch), each batch of distinct rows
    signed afresh on the card, against the plain version on every lane
    (on the adversarial lanes and an even spread at 32,768) and against
    ``hostcrypto.ecdsa_verify_py`` on every honest or plainly forged lane
-   (B <= 512) or on a sample of them, adversarial lanes included;
+   (B <= 512) or on a sample of them, adversarial lanes included, at the
+   group size (threads per lane, 4 or 1) the launcher picks, and the
+   other group size against those verdicts on every lane (the picked
+   instance's registers and spills from ptxas, each size's device ms;
+   each size picked at one checked batch at least); then K2's device ms
+   before and after its redesign, side by side;
 4. K3 (fixed-base k·G) at B = 128, 512, 2,048 (the bench's sign batch
    and sign-queue bucket) and 32,768 against the plain version (every
    lane up to 2,048, an even spread above; k = 1, 2, n - 1 included),
-   and ``sign_batch`` signatures against ``hostcrypto.ecdsa_sign_py``;
+   and ``sign_batch`` signatures against ``hostcrypto.ecdsa_sign_py``,
+   every group size as for K2;
 5. the authentication flow — the first slice's path — at n = 4, f = 1,
    4 clients, 512 requests: client REQUEST signing (K3), REQUEST, PREPARE
    and COMMIT verification (K2), REPLY signing (K3) and client REPLY
@@ -72,9 +81,9 @@ that does not hold:
    (X, Z) equals the plain ladder bit for bit on at least 64 lanes;
 12. the multi-array forms on the packed phases' rows, at the packed
    sibling's bucket, 16,384 and the bench's batch (32,768; 8,192 for
-   HMAC): K2' (eight arrays) and K7' (seven) give K2's and K7's verdicts
-   on every lane and equal their plain versions on at least 64 lanes, the
-   adversarial ones included; K6' (three arrays) equals K6 and its plain
+   HMAC): K2' (eight arrays, every group size as for K2) and K7' (seven)
+   give K2's and K7's verdicts on every lane and equal their plain
+   versions on at least 64 lanes, the adversarial ones included; K6' (three arrays) equals K6 and its plain
    version, and K6s (MAC generation) Python's ``hmac`` and its plain
    version, on every lane;
 13. the bench entry point, ``minbft_tpu_torch.bench.main``, in-process:
@@ -127,10 +136,10 @@ P256_SQR = 2 * 36
 # A multiply mod the group order n (K1's timed op): the reduction's u (a
 # 32-bit multiply) and u*n (8 products) per word.
 ORDER_MUL = 2 * 64 + 8 * (1 + 2 * 8)
-# Fermat inversion mod p by an addition chain for p - 2 (x^(2^32 - 1) in
-# 31 squarings and 5 multiplies, then the runs of p - 2's bits): 255
-# squarings, 13 multiplies.
-P256_INV = 255 * P256_SQR + 13 * P256_MUL
+# Fermat inversion mod p by the addition chain K2 runs (csrc/p256_field.cuh
+# p256_inv: x^(2^32 - 1) on the way, then the runs of p - 2's bits): 255
+# squarings, 12 multiplies.
+P256_INV = 255 * P256_SQR + 12 * P256_MUL
 # Doubling, a = -3 (dbl-2001-b): 3 multiplies, 5 squarings.  Mixed
 # Jacobian + affine addition (madd-2007-bl): 7 multiplies, 4 squarings.
 P256_DBL = 3 * P256_MUL + 5 * P256_SQR
@@ -169,6 +178,10 @@ SHA256_ADD_OPS = 64 * 4 + 48 * 2 + 8
 HMAC_ALU_OPS = 4 * SHA256_ALU_OPS + 16 + 8 + 1
 HMAC_SIGN_ALU_OPS = 4 * SHA256_ALU_OPS + 16
 HMAC_ADD_OPS = 4 * SHA256_ADD_OPS
+# K2's device ms (CUDA-graph replay) before its redesign for Hopper, one
+# thread per lane on the generic field ops: PERF.md section 6, the smoke of
+# the commit before it (NVIDIA H100 80GB HBM3, 700.00 W).
+K2_BEFORE_MS = {512: 9.990, 128: 9.643}
 # Requests of cluster phase A (the main path, n = 7).
 CLUSTER_A_REQUESTS = 10_000
 # Requests of cluster phase C (BASELINE config 5, n = 31).  Config 5
@@ -351,14 +364,51 @@ def spread(bsz: int, must) -> list:
     return sorted(set(must) | set(range(3, bsz, max(1, bsz // 64))))
 
 
-def kernel_entry(runs: dict, main: int, plain_ms: float, max_abs_err: int = 0) -> dict:
+def kernel_entry(runs: dict, main: int, plain_ms: float, max_abs_err: int = 0,
+                 groups: dict = None) -> dict:
     """A kernel's numbers for the kernels line from ``runs`` ({batch: (ms,
     device ms, bound ms, bound by)}): those at ``main``, its deployment
-    bucket, and, under ``other``, those at every other batch it ran."""
+    bucket, and, under ``other``, those at every other batch it ran; with
+    ``groups`` ({batch: (picked group size, {size: device ms})}), the
+    group size the launcher picked and each size's device ms per batch."""
     ms, dev_ms, b_ms, b_by = runs[main]
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max_abs_err,
-                other={b: r for b, r in runs.items() if b != main})
+    entry = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 max_abs_err=max_abs_err,
+                 other={b: r for b, r in runs.items() if b != main})
+    if groups:
+        entry["group"] = {b: g for b, (g, _) in groups.items()}
+        entry["device_ms_by_group"] = {b: by for b, (_, by) in groups.items()}
+    return entry
+
+
+def ptxas_kernels(log: str) -> dict:
+    """nvcc -Xptxas -v output -> {kernel entry (mangled): (registers, spill
+    store bytes, spill load bytes)}."""
+    import re
+
+    out, entry, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)),) + spills
+            entry = None
+    return out
+
+
+def kernel_regs(kernels: dict, name: str, group: int) -> str:
+    """The registers and spills of ``name``'s instance for ``group``
+    threads per lane (its template argument), as one printable phrase."""
+    for entry, (regs, st, ld) in kernels.items():
+        if f"{name}ILi{group}E" in entry:
+            return f"{regs} registers, {st} / {ld} bytes of spill stores / loads"
+    return "not in the ptxas report"
 
 
 def fail(msg: str) -> None:
@@ -1054,6 +1104,7 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+    ptx = {src: ptxas_kernels(log) for src, log in backend.EXTENSION.ptxas_log.items()}
 
     def bound(ops: float, nbytes: float):
         """Least time for ``ops`` issues at 64 lanes per SM per clock
@@ -1061,6 +1112,39 @@ def main() -> int:
         t_ops = ops / imad_per_s * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    def every_group(kid, bsz, got, dev_ms, launch, report, entry):
+        """Run ``launch(g)`` (the kernel's uncounted launcher) at every
+        group size g the launchers pick from: each must give ``got`` (the
+        picked size's checked output) on every lane; print the picked size
+        with its registers and spills and each size's device ms.  Returns
+        (picked size, {g: device ms})."""
+        picked = p256.group_size(bsz)
+        by_g = {}
+        for g in p256.GROUP_SIZES:
+            other = launch(g).cpu().numpy()
+            same = other.shape == got.shape and bool((other == got).all())
+            check(same, f"{kid} B={bsz} T={g}: output differs from T={picked}'s")
+            by_g[g] = dev_ms if g == picked else graph_ms(torch, lambda: launch(g), copies=3)
+        print(f"{kid} B={bsz}: the launcher picks T={picked} "
+              f"({kernel_regs(report, entry, picked)}); T = "
+              + ", ".join(map(str, p256.GROUP_SIZES)) + " give the same output on every "
+              "lane; device ms " + ", ".join(f"T={g} {v:.4f}" for g, v in by_g.items()))
+        return picked, by_g
+
+    def k1(op, x, y, field, g):
+        """K1 at ``g`` threads per group: the wrapper at 1, its uncounted
+        launcher at 4 (the group form K2 and K3 use)."""
+        if g == 1:
+            return limbs.field_op(op, x, y, field)
+        return limbs._launch_field_op(op, x, y, field, g)
+
+    def every_group_picked(kid, groups):
+        """Each group size is the launcher's pick at a checked batch."""
+        picked = {g for g, _ in groups.values()}
+        check(picked == set(p256.GROUP_SIZES),
+              f"{kid}: the checked batches pick T in {sorted(picked)}, "
+              f"not every size of {p256.GROUP_SIZES}")
 
     kernels = {}
 
@@ -1075,13 +1159,31 @@ def main() -> int:
         vb = edges[::-1] + [rng.randbelow(mod) for _ in range(nk1 - len(edges))]
         a = torch.from_numpy(limbs.to_limbs_batch(va).astype(np.uint16)).to(dev)
         b = torch.from_numpy(limbs.to_limbs_batch(vb).astype(np.uint16)).to(dev)
+        # Mod p the ops are the ones specialised to p, at every group size
+        # the launchers pick from, and where an op takes a first operand
+        # of any 256 bits (a product by b < p), 8 of them in [p, 2^256).
+        groups = p256.GROUP_SIZES if field == "p" else (1,)
+        wide = None
+        if field == "p":
+            big = [mod, mod + 1, (1 << 256) - 1] + [
+                mod + rng.randbelow((1 << 256) - mod) for _ in range(5)]
+            wide = torch.from_numpy(
+                limbs.to_limbs_batch(va[:-len(big)] + big).astype(np.uint16)).to(dev)
         for op in limbs.FIELD_OPS:
-            got = limbs.field_op(op, a, b, field).to(torch.int64)
-            want = limbs.field_op_plain(op, spec, a.to(torch.int64), b.to(torch.int64))
-            err = int((got - want).abs().max())
-            k1_err = max(k1_err, err)
-            check(err == 0, f"K1 {op} mod {field}: kernel != plain (max |err| {err})")
-        print(f"K1 mod {field}: {len(limbs.FIELD_OPS)} ops x {nk1} elements exact")
+            x = wide if wide is not None and op in ("mul", "to_mont", "from_mont") else a
+            want = limbs.field_op_plain(op, spec, x.to(torch.int64), b.to(torch.int64))
+            for g in groups:
+                got = k1(op, x, b, field, g).to(torch.int64)
+                err = int((got - want).abs().max())
+                k1_err = max(k1_err, err)
+                check(err == 0, f"K1 {op} mod {field} T={g}: kernel != plain (max |err| {err})")
+        print(f"K1 mod {field}: {len(limbs.FIELD_OPS)} ops x {nk1} elements exact"
+              + (" at T = " + ", ".join(map(str, groups)) + " (mul, to_mont, from_mont "
+                 "also on 8 first operands in [p, 2^256))" if field == "p" else ""))
+        if field == "p":
+            print("K1 mul mod p B=4096 on the device: " + ", ".join(
+                f"T={g} {graph_ms(torch, lambda: k1('mul', a, b, 'p', g)):.4f} ms"
+                for g in groups))
     a64, b64 = a.to(torch.int64), b.to(torch.int64)
     k1_ms = cuda_ms(torch, lambda: limbs.field_op("mul", a, b, "n"))
     k1_dev_ms = graph_ms(torch, lambda: limbs.field_op("mul", a, b, "n"))
@@ -1096,6 +1198,9 @@ def main() -> int:
     # -- phase 3: K2 -----------------------------------------------------------
     keys = [hc.keygen(rng) for _ in range(8)]
     k2 = {}
+    # The group size the launcher picked and each group size's device ms,
+    # per batch.
+    k2_groups = {}
     # The phase's rows and verdicts, which phase 12 feeds to K2'.
     k2_runs = {}
     # cfg4's bucket, the deployment bucket, a large batch and the bench's
@@ -1145,16 +1250,25 @@ def main() -> int:
               f"{ms:.3f} ms per batch ({dev_ms:.3f} on the device), "
               f"{bsz / ms * 1e3:,.0f} verifies/s, bound {b_ms:.4f} ms by {b_by} "
               f"({imads / bsz:,.0f} IMAD issues per lane)")
+        k2_groups[bsz] = every_group(
+            "K2", bsz, got_np, dev_ms, lambda g: p256._launch_verify_packed(rows_d, g),
+            ptx["p256_verify"], "p256_verify_kernel")
         if bsz == 512:
             plain_ms = cuda_ms(
                 torch, lambda: p256.verify_packed_plain(rows_d), reps=1, warm=1
             )
-    kernels["K2"] = kernel_entry(k2, 512, plain_ms)
+    every_group_picked("K2", k2_groups)
+    kernels["K2"] = kernel_entry(k2, 512, plain_ms, groups=k2_groups)
     print(f"K2 plain B=512: {plain_ms:.1f} ms")
+    print("K2 device ms before (one thread per lane on the generic field ops, "
+          "PERF.md) / after: " + "; ".join(
+              f"B={b}: {K2_BEFORE_MS[b]:.3f} / {k2[b][1]:.3f} "
+              f"({K2_BEFORE_MS[b] / k2[b][1]:.1f}x)" for b in (512, 128)))
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # -- phase 4: K3 -----------------------------------------------------------
     k3 = {}
+    k3_groups = {}
     table_d = p256.comb_table_limbs().to(dev)
     # cfg4's bucket, the deployment bucket, the bench's sign batch and
     # sign-queue bucket, and its large sign batch.
@@ -1184,9 +1298,14 @@ def main() -> int:
         print(f"K3 B={bsz}: (X, Z) equal plain on {n_plain} lanes (k = 1, 2, n-1 "
               f"included); {len(host)} signatures byte-identical to host; {ms:.3f} ms "
               f"per batch ({dev_ms:.3f} on the device), bound {b_ms:.4f} ms by {b_by}")
+        k3_groups[bsz] = every_group(
+            "K3", bsz, got.cpu().numpy().astype(np.uint16), dev_ms,
+            lambda g: p256._launch_kg(k_d, g),
+            ptx["p256_kg"], "p256_kg_kernel")
         if bsz == 512:
             k3_plain_ms = cuda_ms(torch, lambda: p256.kg_plain(k_d, table_d), reps=2, warm=1)
-    kernels["K3"] = kernel_entry(k3, 512, k3_plain_ms)
+    every_group_picked("K3", k3_groups)
+    kernels["K3"] = kernel_entry(k3, 512, k3_plain_ms, groups=k3_groups)
     print(f"K3 plain B=512: {k3_plain_ms:.1f} ms")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
@@ -1514,7 +1633,7 @@ def main() -> int:
     # Each form at its packed sibling's deployment bucket, a large batch
     # and the bench's batch (the shapes the bench launches it at).
     L = limbs.NLIMBS
-    runs = {}
+    runs, arr_groups = {}, {}
     for bsz in (512, 16384, bench.BATCH):
         rows, packed_np, crafted = k2_runs[bsz]
         arrays = [rows[:, k * L : (k + 1) * L].astype(np.uint32) for k in range(6)]
@@ -1536,9 +1655,13 @@ def main() -> int:
         print(f"K2' B={bsz}: verdicts equal K2's on every lane and plain on {len(sub)} "
               f"(Q = G, -G, 2G, r2 and adversarial lanes included); {ms:.3f} ms per batch "
               f"({dev_ms:.3f} on the device), bound {b_ms:.4f} ms by {b_by}")
+        arr_groups[bsz] = every_group(
+            "K2'", bsz, got_np, dev_ms, lambda g: p256._launch_verify_arrays(ta, g),
+            ptx["p256_verify"], "p256_verify_arrays_kernel")
         if bsz == 512:
             plain_ms = cuda_ms(torch, lambda: p256.verify_plain(*ta), reps=1, warm=0)
-    kernels["K2'"] = kernel_entry(runs, 512, plain_ms)
+    every_group_picked("K2'", arr_groups)
+    kernels["K2'"] = kernel_entry(runs, 512, plain_ms, groups=arr_groups)
 
     runs = {}
     for bsz in (1024, 16384, bench.BATCH):
@@ -1736,6 +1859,9 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
             "parity": "exact",
         }
+        for key in ("group", "device_ms_by_group"):
+            if key in k:
+                entry[key] = k[key]
         if kid == "K1":
             entry["inlined_into"] = ["K2", "K2'", "K3", "K4", "K7", "K7'", "K8"]
         if kid == "K5":

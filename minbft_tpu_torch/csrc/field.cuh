@@ -1,6 +1,8 @@
-// K1: 256-bit Montgomery field arithmetic for the P-256 prime p, the
-// group order n and the Ed25519 prime 2^255 - 19, as a __device__ library
-// inlined into K2, K3, K4, K7 and K8.
+// K1: 256-bit Montgomery field arithmetic over a modulus read as data
+// (FieldConsts), as a __device__ library: the group order n of P-256
+// (K1's timed op) and the Ed25519 prime 2^255 - 19 (inlined into K7 and
+// K8).  The P-256 prime p has its own ops, specialised at compile time, in
+// p256_field.cuh (K2, K3, K4 and K1's ops mod p).
 //
 // Replaces: minbft_tpu/ops/limbs.py (mont_mul with its unrolled / block /
 // loop lowerings, _mont_finish, _cond_sub, add_mod, sub_mod,
@@ -18,7 +20,6 @@
 // pair; there is no memory traffic inside the ladders at all.  Design:
 // word-level CIOS with 64-bit accumulators that nvcc lowers to
 // IMAD.WIDE / IMAD.HI chains, everything in registers, fully unrolled.
-// Explicit PTX carry chains (mad.lo.cc / madc.hi.cc) are the next step.
 #pragma once
 
 #include <cstdint>
@@ -34,17 +35,6 @@ struct FieldConsts {
   uint32_t e[8];   // m - 2 (Fermat exponent)
   uint32_t mp;     // -m^-1 mod 2^32
 };
-
-static __constant__ FieldConsts kFieldP = {
-    {0xffffffffu, 0xffffffffu, 0xffffffffu, 0x00000000u, 0x00000000u,
-     0x00000000u, 0x00000001u, 0xffffffffu},
-    {0x00000001u, 0x00000000u, 0x00000000u, 0xffffffffu, 0xffffffffu,
-     0xffffffffu, 0xfffffffeu, 0x00000000u},
-    {0x00000003u, 0x00000000u, 0xffffffffu, 0xfffffffbu, 0xfffffffeu,
-     0xffffffffu, 0xfffffffdu, 0x00000004u},
-    {0xfffffffdu, 0xffffffffu, 0xffffffffu, 0x00000000u, 0x00000000u,
-     0x00000000u, 0x00000001u, 0xffffffffu},
-    0x00000001u};
 
 static __constant__ FieldConsts kOrderN = {
     {0xfc632551u, 0xf3b9cac2u, 0xa7179e84u, 0xbce6faadu, 0xffffffffu,
@@ -69,14 +59,6 @@ static __constant__ FieldConsts kFieldEd = {
     {0xffffffebu, 0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
      0xffffffffu, 0xffffffffu, 0x7fffffffu},
     0x286bca1bu};
-
-// Montgomery-domain generator of P-256 (G * R mod p).
-static __constant__ uint32_t kGxM[8] = {0x18a9143cu, 0x79e730d4u, 0x5fedb601u,
-                                        0x75ba95fcu, 0x77622510u, 0x79fb732bu,
-                                        0xa53755c6u, 0x18905f76u};
-static __constant__ uint32_t kGyM[8] = {0xce95560au, 0xddf25357u, 0xba19e45cu,
-                                        0x8b4ab8e4u, 0xdd21f325u, 0xd2e88688u,
-                                        0x25885d85u, 0x8571ff18u};
 
 __device__ __forceinline__ Fe fe_load_const(const uint32_t* c) {
   Fe r;
@@ -207,7 +189,7 @@ __device__ __forceinline__ Fe sub_mod(const Fe& a, const Fe& b,
 // value (a*b + U*m) / 2^256 does not depend on the word size (U is the
 // unique value < 2^256 with a*b + U*m = 0 mod 2^256), so it equals the
 // reference's 16-bit lazy-carry CIOS value, t_hi included.  The argument
-// holds for any odd m, so it covers kFieldEd as well as kFieldP/kOrderN.
+// holds for any odd m, so it covers kFieldEd as well as kOrderN.
 __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b,
                                        const FieldConsts& F) {
   uint32_t t[10];
@@ -267,67 +249,4 @@ __device__ __noinline__ Fe mont_inv(const Fe& a, const FieldConsts& F) {
     }
   }
   return acc;
-}
-
-// ---------------------------------------------------------------------------
-// P-256 point arithmetic over the field p (the reference's formulas in
-// minbft_tpu/ops/p256.py, op for op: _dbl, _madd, _madd_complete_table).
-
-struct Pt {
-  Fe x, y, z; // Jacobian, Montgomery domain; z == 0 <=> identity
-};
-
-// Jacobian doubling, a = -3 (dbl-2001-b).  Maps identity to identity.
-__device__ __forceinline__ Pt pt_dbl(const Pt& p) {
-  const FieldConsts& f = kFieldP;
-  Fe delta = mont_sqr(p.z, f);
-  Fe gamma = mont_sqr(p.y, f);
-  Fe beta = mont_mul(p.x, gamma, f);
-  Fe t0 = sub_mod(p.x, delta, f);
-  Fe t1 = add_mod(p.x, delta, f);
-  Fe alpha = mont_mul(add_mod(add_mod(t0, t0, f), t0, f), t1, f);
-  Fe b2 = add_mod(beta, beta, f);
-  Fe beta4 = add_mod(b2, b2, f);
-  Fe beta8 = add_mod(beta4, beta4, f);
-  Pt r;
-  r.x = sub_mod(mont_sqr(alpha, f), beta8, f);
-  Fe yz = add_mod(p.y, p.z, f);
-  r.z = sub_mod(sub_mod(mont_sqr(yz, f), gamma, f), delta, f);
-  Fe g2 = mont_sqr(gamma, f);
-  Fe g4 = add_mod(g2, g2, f);
-  Fe g8 = add_mod(g4, g4, f);
-  g8 = add_mod(g8, g8, f);
-  r.y = sub_mod(mont_mul(alpha, sub_mod(beta4, r.x, f), f), g8, f);
-  return r;
-}
-
-// Mixed Jacobian + affine addition (madd, 8M+3S).  *exc is set where the
-// formula is undefined (p == q, both finite): the caller rejects the lane.
-// Identity operands are resolved by the reference's selects, including
-// the x/y it leaves in an identity result.
-__device__ __forceinline__ Pt pt_madd(const Pt& p, const Fe& qx, const Fe& qy,
-                                      bool q_inf, bool* exc) {
-  const FieldConsts& f = kFieldP;
-  Fe z1z1 = mont_sqr(p.z, f);
-  Fe u2 = mont_mul(qx, z1z1, f);
-  Fe s2 = mont_mul(qy, mont_mul(p.z, z1z1, f), f);
-  Fe h = sub_mod(u2, p.x, f);
-  Fe r = sub_mod(s2, p.y, f);
-  Fe hh = mont_sqr(h, f);
-  Fe hhh = mont_mul(h, hh, f);
-  Fe v = mont_mul(p.x, hh, f);
-  Fe x3 = sub_mod(sub_mod(mont_sqr(r, f), hhh, f), add_mod(v, v, f), f);
-  Fe y3 = sub_mod(mont_mul(r, sub_mod(v, x3, f), f), mont_mul(p.y, hhh, f), f);
-  Fe z3 = mont_mul(p.z, h, f);
-
-  bool p_inf = fe_is_zero(p.z);
-  *exc = fe_is_zero(h) && fe_is_zero(r) && !p_inf && !q_inf;
-  Fe one = fe_load_const(f.one);
-  Fe zero = fe_zero();
-  Pt out;
-  out.x = fe_select(p_inf, qx, fe_select(q_inf, p.x, x3));
-  out.y = fe_select(p_inf, qy, fe_select(q_inf, p.y, y3));
-  out.z = fe_select(p_inf, fe_select(q_inf, zero, one),
-                    fe_select(q_inf, p.z, z3));
-  return out;
 }

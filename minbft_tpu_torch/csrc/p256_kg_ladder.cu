@@ -8,7 +8,7 @@
 // exc flags are ORed together and fold to Z = 0 at the end (for a nonce
 // below n no partial sum equals G, so it never fires; a hit would send the
 // lane to sign_finish's host signer).  The reference's dbl and madd are
-// kept op for op (csrc/field.cuh pt_dbl, pt_madd), so (X, Z), Jacobian in
+// kept op for op (csrc/p256_field.cuh pt_dbl_madd), so (X, Z), Jacobian in
 // the Montgomery domain, equals the reference's bit for bit, not only after
 // normalisation.  Output: [B, 2, 16] u16 limbs, K3's layout, so
 // sign_finish takes either kernel's output; the values are the reference's
@@ -19,12 +19,13 @@
 // written; chip_smoke.py (k4_imads) counts what the function needs on each
 // run's nonces.  This kernel does more: it runs the madd for every bit
 // (the q_inf select discards it), as the reference does.  Design: as K2's
-// ladder without the Q half: G comes from constant memory, the nonce's
-// words are pulled by selects, everything stays in registers.
+// ladder without the Q half: G is a compile-time constant, the nonce's
+// words are pulled by selects, everything stays in registers, on the
+// one-thread field ops specialised to p (P256F1 in p256_field.cuh).
 
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "p256_field.cuh"
 
 namespace {
 
@@ -35,20 +36,19 @@ __global__ void __launch_bounds__(kThreads)
                           uint16_t* __restrict__ out, int n) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const FieldConsts& f = kFieldP;
+  P256F1 f;
   Fe kw = fe_from_u16(k + (size_t)lane * 16);
 
-  Fe one = fe_load_const(f.one);
-  Fe gx = fe_load_const(kGxM);
-  Fe gy = fe_load_const(kGyM);
+  Fe one = f.one();
+  Fe gx = f.gx();
+  Fe gy = f.gy();
   Pt acc = {one, one, fe_zero()};
   bool exc = false;
   for (int w = 7; w >= 0; --w) {
     uint32_t word = fe_word(kw, w);
     for (int i = 31; i >= 0; --i) {
-      acc = pt_dbl(acc);
       bool e;
-      acc = pt_madd(acc, gx, gy, ((word >> i) & 1u) == 0u, &e);
+      acc = pt_dbl_madd(f, acc, gx, gy, ((word >> i) & 1u) == 0u, &e);
       exc = exc || e;
     }
   }

@@ -39,18 +39,18 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_ext")
 
 # One shared library per kernel source (the P-256 ones include
-# field.cuh, the Ed25519 ones ed25519.cuh over it, the SHA-256 ones
-# sha256.cuh), with the C signature of each of its launch functions: every
-# pointer and the stream as c_void_p, counts as c_int, an int return
-# (cudaGetLastError()).
+# p256_field.cuh over field.cuh, the Ed25519 ones ed25519.cuh over
+# field.cuh, the SHA-256 ones sha256.cuh), with the C signature of each of
+# its launch functions: every pointer and the stream as c_void_p, counts
+# and threads per lane as c_int, an int return (cudaGetLastError()).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LAUNCHERS = {
-    "field_op": {"mbt_field_op": [_I, _I, _P, _P, _P, _I, _P]},
+    "field_op": {"mbt_field_op": [_I, _I, _I, _P, _P, _P, _I, _P]},
     "p256_verify": {
-        "mbt_p256_verify": [_P, _P, _I, _P],
-        "mbt_p256_verify_arrays": [_P] * 9 + [_I, _P],
+        "mbt_p256_verify": [_P, _P, _I, _I, _P],
+        "mbt_p256_verify_arrays": [_P] * 9 + [_I, _I, _P],
     },
-    "p256_kg": {"mbt_p256_kg": [_P, _P, _P, _I, _P]},
+    "p256_kg": {"mbt_p256_kg": [_P, _P, _P, _I, _I, _P]},
     "p256_kg_ladder": {"mbt_p256_kg_ladder": [_P, _P, _I, _P]},
     "sha256_compress": {"mbt_sha256_compress": [_P, _P, _P, _I, _P]},
     "hmac_sha256": {
@@ -209,14 +209,19 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def require(t: torch.Tensor, dtype: torch.dtype, shape: tuple, what: str) -> None:
-    """Wrapper-side argument check before a kernel sees a pointer."""
+def require(t: torch.Tensor, dtype: torch.dtype, shape: tuple, what: str,
+            align: int = 1) -> None:
+    """Wrapper-side argument check before a kernel sees a pointer; ``align``
+    is the width in bytes of the kernel's widest load from ``t`` (a
+    misaligned load would fault on the card and poison the context)."""
     if t.dtype != dtype:
         raise TypeError(f"{what}: dtype {t.dtype} != {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{what}: storage must be {align}-byte aligned")
 
 
 _LAUNCH_LOCK = threading.Lock()

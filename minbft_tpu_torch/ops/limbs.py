@@ -16,7 +16,9 @@ Port of :mod:`minbft_tpu.ops.limbs`.  Three layers:
   These are the CPU path and the yardstick the CUDA kernels are held
   against.
 - **K1** (:func:`field_op`): a launchable test kernel over the device
-  field library ``csrc/field.cuh`` that K2, K3, K7 and K8 are built on.
+  field libraries K2-K4, K7 and K8 are built on: ``csrc/p256_field.cuh``
+  (mod the P-256 prime, specialised to it, at one thread per lane or in
+  groups of 4) and ``csrc/field.cuh`` (mod n and 2^255 - 19).
 
 Nothing here imports ``jax`` or the JAX package.
 """
@@ -410,9 +412,10 @@ def mont_mul_many(spec: FieldSpec, pairs) -> list:
 # Replaces the field arithmetic of minbft_tpu/ops/limbs.py (mont_mul and
 # its three lowerings, _mont_finish, _cond_sub, add_mod, sub_mod,
 # mont_pow_static, mont_inv), which the TPU program inlined into every
-# kernel.  On the H100 it is csrc/field.cuh, a __device__ library inlined
-# into K2, K3, K7 and K8; csrc/field_op.cu wraps one op per launch so the
-# library can be held against the plain ops above.
+# kernel.  On the H100 it is csrc/p256_field.cuh (mod the P-256 prime,
+# inlined into K2-K4) and csrc/field.cuh (mod n and 2^255 - 19, inlined into
+# K7 and K8); csrc/field_op.cu wraps one op per launch so the libraries can
+# be held against the plain ops above.
 
 FIELD_OPS = (
     "mul", "sqr", "add", "sub", "to_mont", "from_mont", "inv",
@@ -461,27 +464,38 @@ def field_op(op: str, a: torch.Tensor, b: torch.Tensor, field: str = "p"):
     the modulus :func:`field_spec` names (``"p"``, ``"n"`` or ``"ed"``).
 
     CPU tensors take the plain version; CUDA tensors launch K1
-    (``csrc/field_op.cu``) or raise."""
+    (``csrc/field_op.cu``, one thread per lane) or raise.  Mod ``"p"`` the
+    kernel runs the ops specialised to p (``csrc/p256_field.cuh``) and
+    reads 32-bit words, so ``a`` and ``b`` must be 4-byte aligned there."""
     spec = field_spec(field)
     if a.device.type == "cpu":
         out = field_op_plain(op, spec, a.to(torch.int64), b.to(torch.int64))
         return out.to(torch.uint16)
     if a.device.type != "cuda":
         raise ValueError(f"field_op: unsupported device {a.device}")
+    out = _launch_field_op(op, a, b, field, 1)
+    backend.count_launch(field_op)
+    return out
+
+
+def _launch_field_op(op: str, a: torch.Tensor, b: torch.Tensor, field: str, t: int):
+    """K1 with ``t`` threads per group (4 mod ``"p"`` runs the multiplies
+    of 4 lanes through the group form K2 and K3 use, one to a thread),
+    after the wrapper-side checks; counts no launch."""
     n = a.shape[0]
-    backend.require(a, torch.uint16, (n, NLIMBS), "field_op a")
-    backend.require(b, torch.uint16, (n, NLIMBS), "field_op b")
+    align = 4 if field == "p" else 1
+    backend.require(a, torch.uint16, (n, NLIMBS), "field_op a", align=align)
+    backend.require(b, torch.uint16, (n, NLIMBS), "field_op b", align=align)
     if b.device != a.device:
         raise ValueError("field_op: a and b on different devices")
     out = torch.empty_like(a)
     lib = backend.EXTENSION.library("field_op")
     with torch.cuda.device(a.device):  # the launch goes to the current device
         rc = lib.mbt_field_op(
-            FIELD_OPS.index(op), _FIELDS[field], backend.ptr(a), backend.ptr(b),
+            FIELD_OPS.index(op), _FIELDS[field], t, backend.ptr(a), backend.ptr(b),
             backend.ptr(out), n, backend.current_stream(a.device),
         )
     backend.check(lib, rc, "field_op")
-    backend.count_launch(field_op)
     return out
 
 

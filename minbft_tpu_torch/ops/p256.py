@@ -17,7 +17,9 @@ rejects the lane, so the kernel only ever errs toward rejection.  Both
 the plain versions below and the CUDA kernels (``csrc/p256_verify.cu``,
 ``csrc/p256_kg.cu``, ``csrc/p256_kg_ladder.cu``) use the reference's
 exact point formulas and selects, so their verdicts and (X, Z) bits equal
-the reference's on every lane, adversarial ones included.
+the reference's on every lane, adversarial ones included.  The kernels
+run their field ops specialised to p (``csrc/p256_field.cuh``), K2 and K3
+with a group of 4 threads per lane at small batches (:func:`group_size`).
 
 Wrappers take CPU tensors to the plain version and CUDA tensors to the
 kernel; any other device raises.
@@ -58,6 +60,23 @@ ORDER = FieldSpec.make(N)
 
 _GX_M = (GX << 256) % P  # Montgomery-domain constants
 _GY_M = (GY << 256) % P
+
+# Threads per lane of K2/K2' and K3 on the card: 4 for a batch of at most
+# GROUP_LIMIT lanes, else 1.  A group of 4 threads shares out the
+# independent multiplies of each level of a point formula
+# (csrc/p256_field.cuh P256Tasks): a shorter chain per lane where the card
+# is nearly empty; where it is full the group's duplicated work costs
+# issue and one thread per lane wins.  chip_smoke.py phases 3, 4 and 12
+# time both sizes at every batch they check (PERF.md section 6): 4 wins
+# up to 2,048 lanes, 1 from 16,384; no path sends a batch in between.
+GROUP_SIZES = (1, 4)
+GROUP_LIMIT = 4096
+
+
+def group_size(n: int) -> int:
+    """Threads per lane the launchers give a batch of ``n`` lanes."""
+    return 4 if n <= GROUP_LIMIT else 1
+
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch point arithmetic (the reference's formulas, op for op).
@@ -205,22 +224,31 @@ def ecdsa_verify_kernel_packed(rows: torch.Tensor) -> torch.Tensor:
     """Batched ECDSA-P256 verify over packed rows -> [B] bool.
 
     CPU: the plain version (any integer dtype).  CUDA: K2
-    (``csrc/p256_verify.cu``, one thread per lane) on PyTorch's current
-    stream; ``rows`` must be a contiguous [B, 98] uint16 tensor."""
+    (``csrc/p256_verify.cu``, :func:`group_size` threads per lane) on
+    PyTorch's current stream; ``rows`` must be a contiguous [B, 98] uint16
+    tensor whose storage is 4-byte aligned (the kernel reads a row as 49
+    32-bit words)."""
     if rows.device.type == "cpu":
         return verify_packed_plain(rows)
     if rows.device.type != "cuda":
         raise ValueError(f"ecdsa_verify_kernel_packed: unsupported device {rows.device}")
+    out = _launch_verify_packed(rows, group_size(rows.shape[0]))
+    backend.count_launch(ecdsa_verify_kernel_packed)
+    return out
+
+
+def _launch_verify_packed(rows: torch.Tensor, t: int) -> torch.Tensor:
+    """K2 at ``t`` threads per lane, after the wrapper-side checks; counts
+    no launch (chip_smoke.py runs every group size through it)."""
     n = rows.shape[0]
-    backend.require(rows, torch.uint16, (n, PACKED_COLS), "verify rows")
+    backend.require(rows, torch.uint16, (n, PACKED_COLS), "verify rows", align=4)
     out = torch.empty(n, dtype=torch.bool, device=rows.device)
     lib = backend.EXTENSION.library("p256_verify")
     with torch.cuda.device(rows.device):  # the launch goes to the current device
         rc = lib.mbt_p256_verify(
-            backend.ptr(rows), backend.ptr(out), n, backend.current_stream(rows.device)
+            backend.ptr(rows), backend.ptr(out), n, t, backend.current_stream(rows.device)
         )
     backend.check(lib, rc, "p256_verify")
-    backend.count_launch(ecdsa_verify_kernel_packed)
     return out
 
 
@@ -234,10 +262,11 @@ def ecdsa_verify_kernel(qx, qy, u1, u2, rr, r2, r2_ok, valid) -> torch.Tensor:
     -> [B] bool (the reference's ``ecdsa_verify_kernel``, ``_verify_batch``).
 
     CPU: the plain version (any integer dtypes).  CUDA: K2'
-    (``csrc/p256_verify.cu``, K2's lane function over the arrays) on
-    PyTorch's current stream; the six limb arrays must be contiguous
-    [B, 16] int32 tensors of u32 limbs (each < 2^16), r2_ok and valid
-    contiguous [B] bool tensors, all on one device."""
+    (``csrc/p256_verify.cu``, K2's lane function over the arrays, threads
+    per lane as K2) on PyTorch's current stream; the six limb arrays must
+    be contiguous [B, 16] int32 tensors of u32 limbs (each < 2^16) whose
+    storage is 8-byte aligned (the kernel reads two limbs at a time),
+    r2_ok and valid contiguous [B] bool tensors, all on one device."""
     arrays = (qx, qy, u1, u2, rr, r2, r2_ok, valid)
     dev = qx.device
     if any(a.device != dev for a in arrays):
@@ -246,20 +275,28 @@ def ecdsa_verify_kernel(qx, qy, u1, u2, rr, r2, r2_ok, valid) -> torch.Tensor:
         return verify_plain(*arrays)
     if dev.type != "cuda":
         raise ValueError(f"ecdsa_verify_kernel: unsupported device {dev}")
-    n = qx.shape[0]
+    out = _launch_verify_arrays(arrays, group_size(qx.shape[0]))
+    backend.count_launch(ecdsa_verify_kernel)
+    return out
+
+
+def _launch_verify_arrays(arrays, t: int) -> torch.Tensor:
+    """K2' at ``t`` threads per lane, after the wrapper-side checks;
+    counts no launch."""
+    qx, r2_ok, valid = arrays[0], arrays[6], arrays[7]
+    n, dev = qx.shape[0], qx.device
     for name, a in zip(_VERIFY_LIMB_ARGS, arrays[:6]):
-        backend.require(a, torch.int32, (n, limbs.NLIMBS), f"verify {name}")
+        backend.require(a, torch.int32, (n, limbs.NLIMBS), f"verify {name}", align=8)
     backend.require(r2_ok, torch.bool, (n,), "verify r2_ok")
     backend.require(valid, torch.bool, (n,), "verify valid")
     out = torch.empty(n, dtype=torch.bool, device=dev)
     lib = backend.EXTENSION.library("p256_verify")
     with torch.cuda.device(dev):  # the launch goes to the current device
         rc = lib.mbt_p256_verify_arrays(
-            *(backend.ptr(a) for a in arrays), backend.ptr(out), n,
+            *(backend.ptr(a) for a in arrays), backend.ptr(out), n, t,
             backend.current_stream(dev),
         )
     backend.check(lib, rc, "p256_verify_arrays")
-    backend.count_launch(ecdsa_verify_kernel)
     return out
 
 
@@ -558,24 +595,33 @@ def ecdsa_kg_kernel(k: torch.Tensor) -> torch.Tensor:
     """Batched k*G: [B, 16] uint16 nonce limbs -> [B, 2, 16] uint16 (X, Z),
     Jacobian, Montgomery domain.
 
-    CPU: the plain version.  CUDA: K3 (``csrc/p256_kg.cu``, one thread
-    per lane, the table in global memory) on the current stream."""
+    CPU: the plain version.  CUDA: K3 (``csrc/p256_kg.cu``,
+    :func:`group_size` threads per lane, the table in global memory) on
+    the current stream; ``k`` must be contiguous and its storage 16-byte
+    aligned (the kernel reads a nonce as two 16-byte words)."""
     if k.device.type == "cpu":
         return kg_plain(k, comb_table_limbs()).to(torch.uint16)
     if k.device.type != "cuda":
         raise ValueError(f"ecdsa_kg_kernel: unsupported device {k.device}")
+    out = _launch_kg(k, group_size(k.shape[0]))
+    backend.count_launch(ecdsa_kg_kernel)
+    return out
+
+
+def _launch_kg(k: torch.Tensor, t: int) -> torch.Tensor:
+    """K3 at ``t`` threads per lane, after the wrapper-side checks; counts
+    no launch."""
     n = k.shape[0]
-    backend.require(k, torch.uint16, (n, limbs.NLIMBS), "kg nonces")
+    backend.require(k, torch.uint16, (n, limbs.NLIMBS), "kg nonces", align=16)
     table = comb_table_words(str(k.device))
     out = torch.empty((n, 2, limbs.NLIMBS), dtype=torch.uint16, device=k.device)
     lib = backend.EXTENSION.library("p256_kg")
     with torch.cuda.device(k.device):  # the launch goes to the current device
         rc = lib.mbt_p256_kg(
-            backend.ptr(k), backend.ptr(table), backend.ptr(out), n,
+            backend.ptr(k), backend.ptr(table), backend.ptr(out), n, t,
             backend.current_stream(k.device),
         )
     backend.check(lib, rc, "p256_kg")
-    backend.count_launch(ecdsa_kg_kernel)
     return out
 
 

@@ -163,6 +163,36 @@ def test_wrappers_default_to_cuda_and_reject_other_devices(monkeypatch):
     assert port.ecdsa_verify_kernel.launches == 0
 
 
+def test_group_size_and_the_launchers_alignment_checks():
+    """K2/K2' and K3 get 4 threads per lane up to GROUP_LIMIT lanes, 1
+    above; and each launcher refuses a view whose storage is misaligned for
+    the kernel's widest load (which would fault on the card) before a
+    kernel sees it."""
+    sizes = [port.group_size(n) for n in (1, 128, 512, 2048, port.GROUP_LIMIT,
+                                          port.GROUP_LIMIT + 1, 16384, 32768)]
+    assert sizes == [4, 4, 4, 4, 4, 1, 1, 1]
+    assert set(sizes) == set(port.GROUP_SIZES)
+
+    def misaligned(dtype, cols, skip):
+        """Two contiguous rows that start ``skip`` elements into their storage."""
+        return torch.zeros(2 * cols + skip, dtype=dtype)[skip:].view(2, cols)
+
+    rows = misaligned(torch.uint16, port.PACKED_COLS, 1)  # 2 bytes in, u32 reads
+    nonces = misaligned(torch.uint16, 16, 4)  # 8 bytes in, 16-byte reads
+    limb = misaligned(torch.int32, 16, 1)  # 4 bytes in, 8-byte reads
+    flags = torch.zeros(2, dtype=torch.bool)
+    for t in port.GROUP_SIZES:
+        with pytest.raises(ValueError, match="4-byte aligned"):
+            port._launch_verify_packed(rows, t)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            port._launch_kg(nonces, t)
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            port._launch_verify_arrays([limb] * 6 + [flags, flags], t)
+        with pytest.raises(ValueError, match="4-byte aligned"):
+            limbs._launch_field_op("mul", misaligned(torch.uint16, 16, 1),
+                                   torch.zeros((2, 16), dtype=torch.uint16), "p", t)
+
+
 def test_is_on_curve(lanes):
     items, _ = lanes
     x, y = items[0][0]
