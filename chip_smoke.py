@@ -11,10 +11,11 @@ that does not hold:
    ``torch.version.cuda``;
 2. K1 (field libraries, ``field_op`` test kernel) against the plain
    PyTorch field ops, every op, 4,096 random and edge elements, exact:
-   mod the P-256 prime p the ops specialised to p at one thread per lane
-   and in groups of 4 (the group's shared multiplies; mul, to_mont and
-   from_mont also on first operands in [p, 2^256)), mod its order n and
-   the Ed25519 prime 2^255 - 19 the generic ops;
+   mod the P-256 prime p and the Ed25519 prime 2^255 - 19 the ops
+   specialised to each prime at one thread per lane and in groups of 4
+   (the group's shared multiplies; mod p mul, to_mont and from_mont also
+   on first operands in [p, 2^256), mod 2^255 - 19 every op on edges in
+   [p, 2^256)), mod its order n the generic ops;
 3. K2 (batched ECDSA-P256 verify) at B = 128 (cfg4's bucket), 512,
    16,384 and 32,768 (the bench's batch), each batch of distinct rows
    signed afresh on the card, against the plain version on every lane
@@ -81,11 +82,13 @@ that does not hold:
    (X, Z) equals the plain ladder bit for bit on at least 64 lanes;
 12. the multi-array forms on the packed phases' rows, at the packed
    sibling's bucket, 16,384 and the bench's batch (32,768; 8,192 for
-   HMAC): K2' (eight arrays, every group size as for K2) and K7' (seven)
-   give K2's and K7's verdicts on every lane and equal their plain
-   versions on at least 64 lanes, the adversarial ones included; K6' (three arrays) equals K6 and its plain
-   version, and K6s (MAC generation) Python's ``hmac`` and its plain
-   version, on every lane;
+   HMAC): K2' (eight arrays) and K7' (seven), every group size as for
+   K2 and K7, give K2's and K7's verdicts on every lane and equal their
+   plain versions on at least 64 lanes, the adversarial ones included,
+   then K7's, K7''s and K8's device ms before and after their redesign
+   for Hopper (a group of 4 threads per lane); K6' (three arrays) equals K6 and its plain version, and
+   K6s (MAC generation) Python's ``hmac`` and its plain version, on every
+   lane;
 13. the bench entry point, ``minbft_tpu_torch.bench.main``, in-process:
    the kernel section at its default batches (32,768), then the ``mac``
    (n = 7, 8,000 requests) and ``cfg4`` (n = 13, bucket 128, 3,000
@@ -147,20 +150,28 @@ P256_MADD = 7 * P256_MUL + 4 * P256_SQR
 # IMAD issues of the least field ops mod m = 2^255 - 19 (K7, K8), counted
 # as the functions need them; every field op returns the unique fully
 # reduced value, so these give the kernels' bits.  A product of two 8-word
-# values is 64 32x32->64 products (36 for a square), two issues each; a
-# Montgomery reduction by this m is, per word, one 32-bit multiply for u
-# and one 32x32->64 product u*19 (u*2^255 is a shift).
-ED_REDC = 8 * (1 + 2)
+# values is 64 32x32->64 products (36 for a square), two issues each; the
+# reduction (2^256 = 38 mod m) folds each of the 8 high columns times 38
+# into its low one (a product by a small constant, two issues each) and
+# the bits from 2^255 up times 19 into word 0 (one issue).
+ED_REDC = 8 * 2 + 1
 ED_MUL = 2 * 64 + ED_REDC
 ED_SQR = 2 * 36 + ED_REDC
+# A value times 38 (2^256 mod m: the map to the Montgomery domain).
+ED_MUL38 = 8 * 2 + 1
 # Fermat inversion by the standard addition chain for p - 2.
 ED_INV = 254 * ED_SQR + 11 * ED_MUL
-# Doubling (dbl-2008-hwcd): 4 squarings, 4 multiplies.  Complete addition
-# with 2d*t stored beside each table entry: 8 multiplies, 7 when the entry
-# has Z = 1 (a mixed add); adding an identity entry (0 : 1 : 1 : 0) costs
-# its four output products, 3 multiplies and a square.
+# Doubling (dbl-2008-hwcd): 4 squarings, 4 multiplies, 3 where no add
+# follows (only an add reads T).  Complete addition (add-2008-hwcd-3) with
+# the addend's y - x, y + x, 2d*t and 2z stored with it: A, B, C and
+# z1*2z2, then X, Y, Z, T; z1*2z2 is z1 + z1 when the addend has Z = 1 (a
+# mixed add), and T is left out where a doubling comes next (K7).  Adding
+# an identity entry (0 : 1 : 1 : 0) costs its four output products, 3
+# multiplies and a square.
 ED_DBL = 4 * ED_SQR + 4 * ED_MUL
-ED_ADD = 8 * ED_MUL
+ED_DBL_NO_T = 4 * ED_SQR + 3 * ED_MUL
+ED_ADD_XYZ = 7 * ED_MUL
+ED_MADD_XYZ = 6 * ED_MUL
 ED_MADD = 7 * ED_MUL
 ED_ADD_IDENTITY = 3 * ED_MUL + ED_SQR
 # Instructions of one SHA-256 compression (csrc/sha256.cuh) on sm_90,
@@ -182,6 +193,14 @@ HMAC_ADD_OPS = 4 * SHA256_ADD_OPS
 # thread per lane on the generic field ops: PERF.md section 6, the smoke of
 # the commit before it (NVIDIA H100 80GB HBM3, 700.00 W).
 K2_BEFORE_MS = {512: 9.990, 128: 9.643}
+# K7's, K7''s and K8's device ms before their redesign for Hopper (one
+# thread per lane on the generic field ops): PERF.md section 6, the smoke
+# of the commit before it (NVIDIA H100 80GB HBM3, 700.00 W).
+ED_BEFORE_MS = {
+    "K7": {1024: 8.451, 16384: 8.795, 32768: 9.298},
+    "K7'": {1024: 8.474, 16384: 8.720, 32768: 9.231},
+    "K8": {1024: 0.489, 2048: 0.492, 8192: 0.538, 16384: 0.539},
+}
 # Requests of cluster phase A (the main path, n = 7).
 CLUSTER_A_REQUESTS = 10_000
 # Requests of cluster phase C (BASELINE config 5, n = 31).  Config 5
@@ -314,13 +333,13 @@ def k4_imads(k: "np.ndarray") -> int:
 def k7_imads(rows: np.ndarray) -> int:
     """IMAD issues that K7's (and K7''s) function needs on these [B, 82]
     packed rows, summed over the lanes.  A lane with valid = 0 needs none
-    (its verdict is false).  A valid lane: 12 multiplies of setup (A' into
-    the Montgomery domain, its T, B + A' as a mixed add, 2d*t of A' and of
-    B + A'); from the top nonzero digit 2*bit(u1) + bit(u2) down, that
-    digit's entry is loaded and every lower bit costs a doubling plus,
-    for a nonzero digit, an add of A' or B (mixed) or B + A' (general);
-    then the inversion, x*zi and y*zi, and two reductions out of the
-    Montgomery domain."""
+    (its verdict is false).  A valid lane: 10 multiplies of setup (T of
+    A', B + A' as a mixed add, 2d*t of A' and of B + A'); from the top
+    nonzero digit 2*bit(u1) + bit(u2) down, that digit's entry is loaded
+    and every lower bit costs a doubling plus, for a nonzero digit, an add
+    of A' or B (mixed) or B + A' (general), neither computing T; then the
+    inversion and x*zi, y*zi (the values are plain residues: no map out
+    of a Montgomery domain)."""
     import numpy as np
 
     from minbft_tpu_torch.ops import ed25519, limbs
@@ -340,23 +359,30 @@ def k7_imads(rows: np.ndarray) -> int:
     dbls = int(np.where(has, top, 0).sum())
     general = int(np.where(has, general, 0).sum())
     mixed = int(np.where(has, mixed, 0).sum())
-    per_lane = 12 * ED_MUL + ED_INV + 2 * ED_MUL + 2 * ED_REDC
-    return len(live) * per_lane + dbls * ED_DBL + mixed * ED_MADD + general * ED_ADD
+    adds = general + mixed
+    per_lane = 10 * ED_MUL + ED_INV + 2 * ED_MUL
+    return (len(live) * per_lane + adds * ED_DBL + (dbls - adds) * ED_DBL_NO_T
+            + mixed * ED_MADD_XYZ + general * ED_ADD_XYZ)
 
 
 def k8_imads(r: np.ndarray) -> int:
     """IMAD issues that K8's function needs on these [B, 16] nonce limbs,
     summed over the lanes: the first window's add onto the identity needs
     one multiply (T) for a nonzero nibble and none for zero; each later
-    window a mixed add of its table row (x, y, 2d*t; Z = 1), or the
-    identity's cheaper add for a zero nibble."""
+    window a mixed add of its table row (y - x, y + x, 2d*t; Z = 1), or the
+    identity's cheaper add for a zero nibble, the last window's without T;
+    then X, Y, Z times 38 into the Montgomery domain."""
     import numpy as np
 
     nib = (r.astype(np.int64)[:, :, None] >> np.array([0, 4, 8, 12])) & 0xF
     nib = nib.reshape(len(r), 64)
-    zero_later = int((nib[:, 1:] == 0).sum())
+    zero_mid = int((nib[:, 1:63] == 0).sum())
+    zero_last = int((nib[:, 63] == 0).sum())
     return (int((nib[:, 0] != 0).sum()) * ED_MUL
-            + (nib[:, 1:].size - zero_later) * ED_MADD + zero_later * ED_ADD_IDENTITY)
+            + (nib[:, 1:63].size - zero_mid) * ED_MADD + zero_mid * ED_ADD_IDENTITY
+            + (len(r) - zero_last) * ED_MADD_XYZ
+            + zero_last * (ED_ADD_IDENTITY - ED_MUL)
+            + len(r) * 3 * ED_MUL38)
 
 
 def spread(bsz: int, must) -> list:
@@ -382,33 +408,52 @@ def kernel_entry(runs: dict, main: int, plain_ms: float, max_abs_err: int = 0,
 
 
 def ptxas_kernels(log: str) -> dict:
-    """nvcc -Xptxas -v output -> {kernel entry (mangled): (registers, spill
-    store bytes, spill load bytes)}."""
+    """nvcc -Xptxas -v output -> {kernel entry (mangled): (registers, stack
+    frame bytes, spill store bytes, spill load bytes)}."""
     import re
 
-    out, entry, spills = {}, None, (0, 0)
+    out, entry, frame = {}, None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry, spills = m.group(1), (0, 0)
+            entry, frame = m.group(1), (0, 0, 0)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and entry:
-            spills = (int(m.group(1)), int(m.group(2)))
+            frame = tuple(int(g) for g in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            out[entry] = (int(m.group(1)),) + spills
+            out[entry] = (int(m.group(1)),) + frame
             entry = None
     return out
 
 
+def regs_phrase(regs: int, frame: int, st: int, ld: int) -> str:
+    return (f"{regs} registers, {frame}-byte frame, {st} / {ld} bytes of spill "
+            "stores / loads")
+
+
 def kernel_regs(kernels: dict, name: str, group: int) -> str:
-    """The registers and spills of ``name``'s instance for ``group``
-    threads per lane (its template argument), as one printable phrase."""
-    for entry, (regs, st, ld) in kernels.items():
+    """The registers, stack frame and spills of ``name``'s instance for
+    ``group`` threads per lane (its template argument), as one printable
+    phrase."""
+    for entry, report in kernels.items():
         if f"{name}ILi{group}E" in entry:
-            return f"{regs} registers, {st} / {ld} bytes of spill stores / loads"
+            return regs_phrase(*report)
     return "not in the ptxas report"
+
+
+def demangle(names) -> dict:
+    """Mangled kernel names -> readable ones (``c++filt`` where the
+    machine has it, else the names as they are)."""
+    names = list(names)
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    return dict(zip(names, out if len(out) == len(names) else names))
 
 
 def fail(msg: str) -> None:
@@ -1100,11 +1145,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"SMs {n_sms}, max SM clock {sm_clock_mhz:.0f} MHz")
     print(f"extension build: {build_s:.1f} s into {backend.EXTENSION.build_dir}")
-    for src, log in backend.EXTENSION.ptxas_log.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
     ptx = {src: ptxas_kernels(log) for src, log in backend.EXTENSION.ptxas_log.items()}
+    # Every kernel instance's registers, stack frame and spills.
+    names = demangle(e for kern in ptx.values() for e in kern)
+    for src, kern in ptx.items():
+        for entry, report in kern.items():
+            print(f"  ptxas {src}: {names[entry]}: {regs_phrase(*report)}")
 
     def bound(ops: float, nbytes: float):
         """Least time for ``ops`` issues at 64 lanes per SM per clock
@@ -1115,10 +1161,10 @@ def main() -> int:
 
     def every_group(kid, bsz, got, dev_ms, launch, report, entry):
         """Run ``launch(g)`` (the kernel's uncounted launcher) at every
-        group size g the launchers pick from: each must give ``got`` (the
-        picked size's checked output) on every lane; print the picked size
-        with its registers and spills and each size's device ms.  Returns
-        (picked size, {g: device ms})."""
+        group size g the P-256 launchers pick from: each must give ``got``
+        (the picked size's checked output) on every lane; print the picked
+        size with its registers, frame and spills and each size's device
+        ms.  Returns (picked size, {g: device ms})."""
         picked = p256.group_size(bsz)
         by_g = {}
         for g in p256.GROUP_SIZES:
@@ -1134,7 +1180,7 @@ def main() -> int:
 
     def k1(op, x, y, field, g):
         """K1 at ``g`` threads per group: the wrapper at 1, its uncounted
-        launcher at 4 (the group form K2 and K3 use)."""
+        launcher at 4 (the group form K2, K3, K7, K7' and K8 use)."""
         if g == 1:
             return limbs.field_op(op, x, y, field)
         return limbs._launch_field_op(op, x, y, field, g)
@@ -1159,10 +1205,11 @@ def main() -> int:
         vb = edges[::-1] + [rng.randbelow(mod) for _ in range(nk1 - len(edges))]
         a = torch.from_numpy(limbs.to_limbs_batch(va).astype(np.uint16)).to(dev)
         b = torch.from_numpy(limbs.to_limbs_batch(vb).astype(np.uint16)).to(dev)
-        # Mod p the ops are the ones specialised to p, at every group size
-        # the launchers pick from, and where an op takes a first operand
-        # of any 256 bits (a product by b < p), 8 of them in [p, 2^256).
-        groups = p256.GROUP_SIZES if field == "p" else (1,)
+        # Mod the primes the ops are the ones specialised to each, at one
+        # thread per lane and in the group of 4 the kernels use; mod p where an op takes a
+        # first operand of any 256 bits (a product by b < p), 8 of them in
+        # [p, 2^256) (mod 2^255 - 19 the edges hold two such operands).
+        groups = (1,) if field == "n" else (1, 4)
         wide = None
         if field == "p":
             big = [mod, mod + 1, (1 << 256) - 1] + [
@@ -1178,11 +1225,12 @@ def main() -> int:
                 k1_err = max(k1_err, err)
                 check(err == 0, f"K1 {op} mod {field} T={g}: kernel != plain (max |err| {err})")
         print(f"K1 mod {field}: {len(limbs.FIELD_OPS)} ops x {nk1} elements exact"
-              + (" at T = " + ", ".join(map(str, groups)) + " (mul, to_mont, from_mont "
-                 "also on 8 first operands in [p, 2^256))" if field == "p" else ""))
-        if field == "p":
-            print("K1 mul mod p B=4096 on the device: " + ", ".join(
-                f"T={g} {graph_ms(torch, lambda: k1('mul', a, b, 'p', g)):.4f} ms"
+              + " at T = " + ", ".join(map(str, groups))
+              + (" (mul, to_mont, from_mont also on 8 first operands in [p, 2^256))"
+                 if field == "p" else ""))
+        if field != "n":
+            print(f"K1 mul mod {field} B=4096 on the device: " + ", ".join(
+                f"T={g} {graph_ms(torch, lambda: k1('mul', a, b, field, g)):.4f} ms"
                 for g in groups))
     a64, b64 = a.to(torch.int64), b.to(torch.int64)
     k1_ms = cuda_ms(torch, lambda: limbs.field_op("mul", a, b, "n"))
@@ -1688,6 +1736,12 @@ def main() -> int:
         if bsz == 1024:
             plain_ms = cuda_ms(torch, lambda: ed25519.verify_plain(*te), reps=1, warm=0)
     kernels["K7'"] = kernel_entry(runs, 1024, plain_ms)
+    after = {(kid, b): (kernels[kid]["device_ms"] if b == 1024 else kernels[kid]["other"][b][1])
+             for kid, by_b in ED_BEFORE_MS.items() for b in by_b}
+    print("Ed25519 device ms before (one thread per lane on the generic field ops, "
+          "PERF.md) / after: " + "; ".join(
+              f"{kid} B={b}: {was:.3f} / {after[kid, b]:.3f} ({was / after[kid, b]:.1f}x)"
+              for kid, by_b in ED_BEFORE_MS.items() for b, was in by_b.items()))
 
     import hmac as py_hmac
 
@@ -1812,8 +1866,8 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14")
     # -- phase 14 ----------------------------------------------------------------
     meta = {
-        "K1": ("field_op (csrc/field.cuh library)", "minbft_tpu_torch/csrc/field.cuh",
-               "minbft_tpu/ops/limbs.py:335"),
+        "K1": ("field_op (csrc/field.cuh, p256_field.cuh and ed25519_field.cuh libraries)",
+               "minbft_tpu_torch/csrc/field.cuh", "minbft_tpu/ops/limbs.py:335"),
         "K2": ("ecdsa_verify_kernel_packed", "minbft_tpu_torch/csrc/p256_verify.cu",
                "minbft_tpu/ops/p256.py:504"),
         "K3": ("ecdsa_kg_kernel", "minbft_tpu_torch/csrc/p256_kg.cu",

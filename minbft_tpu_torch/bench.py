@@ -41,9 +41,12 @@ stamped with the backend, the device and its power limit.
 
 Left out (ROADMAP.md queue 1, each with the module it waits for): the
 multi-process ``mp``/``mptcp`` runs (TCP/gRPC conns, ``sample/peer``),
-``bench_ingest_sweep``, ``_bench_readonly``, ``bench_groups``,
-``bench_load``, ``bench_groups_chips`` and ``bench_recovery`` (groups,
-loadgen, testing, recovery soak), and ``use_mesh`` (multi-GPU).  Dropped
+``_bench_readonly``, ``bench_groups``, ``bench_load``,
+``bench_groups_chips`` and ``bench_recovery`` (groups, loadgen, testing,
+recovery soak), and ``use_mesh`` (multi-GPU); ``bench_ingest_sweep``
+waits for no module (the core's bundle-ingest runtime it sweeps,
+``core/message_handling.py`` ``_BundleIngestor``, is ported) and is not
+ported yet.  Dropped
 as JAX- or TPU-only: the lowering modes and ``*_mode`` keys, the compile
 cache keys, ``tpu_unavailable``, the ``last_tpu`` carry-forward, the TPU
 ceiling and the ``vs_baseline`` ratio.
@@ -727,8 +730,10 @@ async def _bench_cluster(
         f"{prefix}_clients": n_clients,
         f"{prefix}_requests": n_requests,
         f"{prefix}_committed_req_per_sec": round(n_requests / dt, 1),
-        # The port's core has no bundle-ingest runtime yet: both read 0,
-        # present so the key set matches the reference's.
+        # The core's bundle-ingest runtime (core/message_handling.py
+        # _BundleIngestor, on unless MINBFT_BUNDLE_INGEST=0) counts its
+        # ticks and the frames each tick drains: the mean frames per tick
+        # and the ticks per second over the timed run.
         f"{prefix}_ingest_batch_mean": round(
             agg.get("ingest_frames", 0) / max(agg.get("ingest_ticks", 0), 1), 2
         ),

@@ -1,8 +1,10 @@
-// K1: 256-bit Montgomery field arithmetic over a modulus read as data
-// (FieldConsts), as a __device__ library: the group order n of P-256
-// (K1's timed op) and the Ed25519 prime 2^255 - 19 (inlined into K7 and
-// K8).  The P-256 prime p has its own ops, specialised at compile time, in
-// p256_field.cuh (K2, K3, K4 and K1's ops mod p).
+// The 8-word field element shared by every field library of the port, its
+// helpers, the PTX carry primitives, the group geometry (T threads per
+// lane sharing out each level's independent multiplies), and K1's generic
+// Montgomery ops over a modulus read as data, for the P-256 group order n
+// (K1's timed op).  The primes have their own ops, specialised at compile
+// time: p in p256_field.cuh (K2, K3, K4), 2^255 - 19 in ed25519_field.cuh
+// (K7, K8).
 //
 // Replaces: minbft_tpu/ops/limbs.py (mont_mul with its unrolled / block /
 // loop lowerings, _mont_finish, _cond_sub, add_mod, sub_mod,
@@ -15,14 +17,15 @@
 // value (< m) and the one conditional subtract follows the reference's
 // rule (t_hi >= borrow), so results are bit-identical to the reference's.
 //
-// Bound on the H100: integer multiply-add issue.  A multiply is 64
-// 32x32->64 products for a*b plus 64 for u*m (CIOS), each a wide IMAD
-// pair; there is no memory traffic inside the ladders at all.  Design:
-// word-level CIOS with 64-bit accumulators that nvcc lowers to
-// IMAD.WIDE / IMAD.HI chains, everything in registers, fully unrolled.
+// Bound on the H100 (the generic ops): integer multiply-add issue.  A
+// multiply is 64 32x32->64 products for a*b plus 64 for u*m (CIOS), each a
+// wide IMAD pair.  Design: word-level CIOS with 64-bit accumulators that
+// nvcc lowers to IMAD.WIDE / IMAD.HI chains, everything in registers,
+// fully unrolled.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 struct Fe {
   uint32_t v[8];
@@ -46,19 +49,6 @@ static __constant__ FieldConsts kOrderN = {
     {0xfc63254fu, 0xf3b9cac2u, 0xa7179e84u, 0xbce6faadu, 0xffffffffu,
      0xffffffffu, 0x00000000u, 0xffffffffu},
     0xee00bc4fu};
-
-// The Ed25519 prime 2^255 - 19 (K7, K8): one = 2^256 mod m = 38,
-// r2 = 38^2 = 1444.
-static __constant__ FieldConsts kFieldEd = {
-    {0xffffffedu, 0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
-     0xffffffffu, 0xffffffffu, 0x7fffffffu},
-    {0x00000026u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-     0x00000000u, 0x00000000u, 0x00000000u},
-    {0x000005a4u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
-     0x00000000u, 0x00000000u, 0x00000000u},
-    {0xffffffebu, 0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
-     0xffffffffu, 0xffffffffu, 0x7fffffffu},
-    0x286bca1bu};
 
 __device__ __forceinline__ Fe fe_load_const(const uint32_t* c) {
   Fe r;
@@ -189,7 +179,7 @@ __device__ __forceinline__ Fe sub_mod(const Fe& a, const Fe& b,
 // value (a*b + U*m) / 2^256 does not depend on the word size (U is the
 // unique value < 2^256 with a*b + U*m = 0 mod 2^256), so it equals the
 // reference's 16-bit lazy-carry CIOS value, t_hi included.  The argument
-// holds for any odd m, so it covers kFieldEd as well as kOrderN.
+// holds for any odd m.
 __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b,
                                        const FieldConsts& F) {
   uint32_t t[10];
@@ -249,4 +239,155 @@ __device__ __noinline__ Fe mont_inv(const Fe& a, const FieldConsts& F) {
     }
   }
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// PTX carry-chain primitives for the add/sub chains.  The carry flag
+// (CC.CF) flows from one asm statement to the next; they are volatile so
+// they stay in order, and nvcc emits no other flag-setting instruction.
+// Compiled for the host with MBT_HOST_TEST, they run on an emulated flag
+// (the repository's host tests of the field headers).
+
+#if !defined(__CUDA_ARCH__) && defined(MBT_HOST_TEST)
+#define MBT_EMU 1
+static thread_local uint32_t mbt_cf;
+#endif
+
+#if defined(__CUDA_ARCH__)
+#define MBT_PTX3(op, d, a, b) \
+  asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#endif
+
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#if defined(__CUDA_ARCH__)
+  MBT_PTX3("add.cc.u32", r, a, b);
+#elif defined(MBT_EMU)
+  uint64_t s = (uint64_t)a + b;
+  mbt_cf = (uint32_t)(s >> 32);
+  r = (uint32_t)s;
+#endif
+  return r;
+}
+
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#if defined(__CUDA_ARCH__)
+  MBT_PTX3("addc.cc.u32", r, a, b);
+#elif defined(MBT_EMU)
+  uint64_t s = (uint64_t)a + b + mbt_cf;
+  mbt_cf = (uint32_t)(s >> 32);
+  r = (uint32_t)s;
+#endif
+  return r;
+}
+
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#if defined(__CUDA_ARCH__)
+  MBT_PTX3("addc.u32", r, a, b);
+#elif defined(MBT_EMU)
+  r = a + b + mbt_cf;
+#endif
+  return r;
+}
+
+// Subtraction: the flag is the borrow.
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#if defined(__CUDA_ARCH__)
+  MBT_PTX3("sub.cc.u32", r, a, b);
+#elif defined(MBT_EMU)
+  mbt_cf = a < b;
+  r = a - b;
+#endif
+  return r;
+}
+
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#if defined(__CUDA_ARCH__)
+  MBT_PTX3("subc.cc.u32", r, a, b);
+#elif defined(MBT_EMU)
+  uint64_t d = (uint64_t)a - b - mbt_cf;
+  mbt_cf = (uint32_t)(d >> 63);
+  r = (uint32_t)d;
+#endif
+  return r;
+}
+
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#if defined(__CUDA_ARCH__)
+  MBT_PTX3("subc.u32", r, a, b);
+#elif defined(MBT_EMU)
+  r = a - b - mbt_cf;
+#endif
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// T threads per lane, over a one-thread field class F1 (P256F1, EdF1): the
+// one-thread ops, run by every thread of the group on the lane's common
+// state, except the multiplies of a level (muls), which the group deals out
+// and shares.  Control flow stays uniform inside a group (every branch is
+// on a value the group holds in common), so the shuffles use the group's
+// own lane mask and groups of one warp may diverge.
+
+template <class F1, int T>
+struct FieldTasks : F1 {
+  static_assert(T == 4, "the launchers' one group size");
+
+  uint32_t rank;  // 0..T-1
+  uint32_t mask;  // the group's lanes in the warp
+
+  __device__ __forceinline__ FieldTasks() {
+    uint32_t lane = threadIdx.x & 31u;
+    rank = lane & (uint32_t)(T - 1);
+    mask = ((1u << T) - 1u) << (lane - rank);
+  }
+  __device__ __forceinline__ bool leader() const { return rank == 0u; }
+  // Rank src's value of v.
+  __device__ __forceinline__ Fe from(const Fe& v, uint32_t src) const {
+    Fe r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.v[j] = __shfl_sync(mask, v.v[j], (int)src, T);
+    return r;
+  }
+  // Rounds of T multiplies: in round j0, rank r computes multiply j0 + r
+  // (a rank past the level's last computes multiply j0 again, unused), a
+  // round of squares only by the squaring, then every rank takes each
+  // product from the rank that computed it.
+  template <int K, unsigned SQ>
+  __device__ __forceinline__ void muls(const Fe (&a)[K], const Fe (&b)[K],
+                                       Fe (&out)[K]) const {
+#pragma unroll
+    for (int j0 = 0; j0 < K; j0 += T) {
+      Fe x = a[j0], y = b[j0];
+#pragma unroll
+      for (int j = j0 + 1; j < j0 + T && j < K; ++j) {
+        bool mine = rank == (uint32_t)(j - j0);
+        x = fe_select(mine, a[j], x);
+        y = fe_select(mine, b[j], y);
+      }
+      unsigned round = (((1u << T) - 1u) << j0) & ((1u << K) - 1u);
+      Fe p = (SQ & round) == round ? this->sqr(x) : this->mul(x, y);
+#pragma unroll
+      for (int j = j0; j < j0 + T && j < K; ++j) out[j] = from(p, (uint32_t)(j - j0));
+    }
+  }
+};
+
+// The field ops of F1 for T (1 or 4) threads per lane.
+template <class F1, int T>
+using FieldGeometry = std::conditional_t<T == 1, F1, FieldTasks<F1, T>>;
+
+// ---------------------------------------------------------------------------
+// Over either geometry.
+
+template <class F>
+__device__ __forceinline__ Fe sqr_n(const F& f, Fe x, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) x = f.sqr(x);
+  return x;
 }

@@ -6,7 +6,7 @@
 // generic ops of field.cuh (mont_mul's CIOS over a __constant__ modulus,
 // mont_sqr = mont_mul(a, a), mont_inv's 256 squarings and ~128 multiplies),
 // which K2-K4 ran on every multiply.  field.cuh keeps the generic ops for
-// the group order n and for 2^255 - 19.
+// the group order n, the carry primitives and the group geometry.
 //
 // Every op returns the value the generic op returns, bit for bit: R is
 // 2^256, a product is (a*b + U*p) / 2^256 with U the unique 256-bit value
@@ -52,91 +52,6 @@
 #include <cstdint>
 
 #include "field.cuh"
-
-// ---------------------------------------------------------------------------
-// PTX carry-chain primitives for the add/sub chains.  The carry flag
-// (CC.CF) flows from one asm statement to the next; they are volatile so
-// they stay in order, and nvcc emits no other flag-setting instruction.
-// Compiled for the host with MBT_HOST_TEST, they run on an emulated flag
-// (the repository's host tests of this header).
-
-#if !defined(__CUDA_ARCH__) && defined(MBT_HOST_TEST)
-#define MBT_EMU 1
-static thread_local uint32_t mbt_cf;
-#endif
-
-#if defined(__CUDA_ARCH__)
-#define MBT_PTX3(op, d, a, b) \
-  asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#endif
-
-__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-#if defined(__CUDA_ARCH__)
-  MBT_PTX3("add.cc.u32", r, a, b);
-#elif defined(MBT_EMU)
-  uint64_t s = (uint64_t)a + b;
-  mbt_cf = (uint32_t)(s >> 32);
-  r = (uint32_t)s;
-#endif
-  return r;
-}
-
-__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-#if defined(__CUDA_ARCH__)
-  MBT_PTX3("addc.cc.u32", r, a, b);
-#elif defined(MBT_EMU)
-  uint64_t s = (uint64_t)a + b + mbt_cf;
-  mbt_cf = (uint32_t)(s >> 32);
-  r = (uint32_t)s;
-#endif
-  return r;
-}
-
-__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-#if defined(__CUDA_ARCH__)
-  MBT_PTX3("addc.u32", r, a, b);
-#elif defined(MBT_EMU)
-  r = a + b + mbt_cf;
-#endif
-  return r;
-}
-
-// Subtraction: the flag is the borrow.
-__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-#if defined(__CUDA_ARCH__)
-  MBT_PTX3("sub.cc.u32", r, a, b);
-#elif defined(MBT_EMU)
-  mbt_cf = a < b;
-  r = a - b;
-#endif
-  return r;
-}
-
-__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-#if defined(__CUDA_ARCH__)
-  MBT_PTX3("subc.cc.u32", r, a, b);
-#elif defined(MBT_EMU)
-  uint64_t d = (uint64_t)a - b - mbt_cf;
-  mbt_cf = (uint32_t)(d >> 63);
-  r = (uint32_t)d;
-#endif
-  return r;
-}
-
-__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
-  uint32_t r = 0;
-#if defined(__CUDA_ARCH__)
-  MBT_PTX3("subc.u32", r, a, b);
-#elif defined(MBT_EMU)
-  r = a - b - mbt_cf;
-#endif
-  return r;
-}
 
 // ---------------------------------------------------------------------------
 // Constants (little-endian words): p, R mod p (the Montgomery one),
@@ -319,76 +234,14 @@ struct P256F1 {
   }
 };
 
-// ---------------------------------------------------------------------------
-// T threads per lane: the one-thread ops, run by every thread of the group
-// on the lane's common state, except the multiplies of a level (muls),
-// which the group deals out and shares.
-
+// T threads per lane (field.cuh FieldTasks) over P256F1.
 template <int T>
-struct P256Tasks : P256F1 {
-  static_assert(T == 4, "the launchers' one group size");
-
-  uint32_t rank;  // 0..T-1
-  uint32_t mask;  // the group's lanes in the warp
-
-  __device__ __forceinline__ P256Tasks() {
-    uint32_t lane = threadIdx.x & 31u;
-    rank = lane & (uint32_t)(T - 1);
-    mask = ((1u << T) - 1u) << (lane - rank);
-  }
-  __device__ __forceinline__ bool leader() const { return rank == 0u; }
-  // Rank src's value of v.
-  __device__ __forceinline__ Fe from(const Fe& v, uint32_t src) const {
-    Fe r;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r.v[j] = __shfl_sync(mask, v.v[j], (int)src, T);
-    return r;
-  }
-  // Rounds of T multiplies: in round j0, rank r computes multiply j0 + r
-  // (a rank past the level's last computes multiply j0 again, unused), a
-  // round of squares only by the squaring, then every rank takes each
-  // product from the rank that computed it.
-  template <int K, unsigned SQ>
-  __device__ __forceinline__ void muls(const Fe (&a)[K], const Fe (&b)[K],
-                                       Fe (&out)[K]) const {
-#pragma unroll
-    for (int j0 = 0; j0 < K; j0 += T) {
-      Fe x = a[j0], y = b[j0];
-#pragma unroll
-      for (int j = j0 + 1; j < j0 + T && j < K; ++j) {
-        bool mine = rank == (uint32_t)(j - j0);
-        x = fe_select(mine, a[j], x);
-        y = fe_select(mine, b[j], y);
-      }
-      unsigned round = (((1u << T) - 1u) << j0) & ((1u << K) - 1u);
-      Fe p = (SQ & round) == round ? sqr(x) : mul(x, y);
-#pragma unroll
-      for (int j = j0; j < j0 + T && j < K; ++j) out[j] = from(p, (uint32_t)(j - j0));
-    }
-  }
-};
-
-// The field ops for T (1 or 4) threads per lane.
+using P256Tasks = FieldTasks<P256F1, T>;
 template <int T>
-struct P256FieldFor {
-  using type = P256Tasks<T>;
-};
-template <>
-struct P256FieldFor<1> {
-  using type = P256F1;
-};
-template <int T>
-using P256Field = typename P256FieldFor<T>::type;
+using P256Field = FieldGeometry<P256F1, T>;
 
 // ---------------------------------------------------------------------------
 // Over either geometry.
-
-template <class F>
-__device__ __forceinline__ Fe sqr_n(const F& f, Fe x, int n) {
-#pragma unroll 1
-  for (int i = 0; i < n; ++i) x = f.sqr(x);
-  return x;
-}
 
 // Fermat inversion x^(p-2) in the Montgomery domain by an addition chain
 // (255 squarings, 12 multiplies); the value equals the generic mont_inv's.

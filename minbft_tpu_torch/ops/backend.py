@@ -40,7 +40,8 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_ext")
 
 # One shared library per kernel source (the P-256 ones include
 # p256_field.cuh over field.cuh, the Ed25519 ones ed25519.cuh over
-# field.cuh, the SHA-256 ones sha256.cuh), with the C signature of each of
+# ed25519_field.cuh over field.cuh, the SHA-256 ones sha256.cuh), with
+# the C signature of each of
 # its launch functions: every pointer and the stream as c_void_p, counts
 # and threads per lane as c_int, an int return (cudaGetLastError()).
 _P, _I = ctypes.c_void_p, ctypes.c_int

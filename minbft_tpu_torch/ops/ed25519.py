@@ -18,12 +18,13 @@ Verification semantics are the reference's (strict, cofactorless; see
 ``utils/hostcrypto.py``): non-canonical R or S, undecodable keys and
 wrong-length signatures become ``valid = 0`` lanes.
 
-Both the plain versions below and the CUDA kernels
-(``csrc/ed25519_verify.cu``, ``csrc/ed25519_rb.cu``) use the reference's
-``_add`` / ``_dbl`` op for op, so K7's verdicts and K8's projective
-(X, Y, Z) bits equal the reference's on every lane.  Wrappers take CPU
-tensors to the plain version and CUDA tensors to the kernel; any other
-device raises.
+The plain versions below use the reference's ``_add`` / ``_dbl`` op for
+op.  The CUDA kernels (``csrc/ed25519_verify.cu``, ``csrc/ed25519_rb.cu``)
+run the same formulas on exact field ops mod 2^255 - 19 specialised at
+compile time (``csrc/ed25519_field.cuh``), on a group of 4 threads per
+lane, so K7's verdicts and K8's projective (X, Y, Z) bits equal the
+reference's on every lane.  Wrappers take CPU tensors to the plain
+version and CUDA tensors to the kernel; any other device raises.
 """
 
 from __future__ import annotations
@@ -177,20 +178,25 @@ def ed25519_verify_kernel_packed(rows: torch.Tensor) -> torch.Tensor:
     """Batched Ed25519 verify over packed rows -> [B] bool.
 
     CPU: the plain version (any integer dtype).  CUDA: K7
-    (``csrc/ed25519_verify.cu``, one thread per lane) on PyTorch's
-    current stream; ``rows`` must be a contiguous [B, 82] uint16 tensor
-    whose storage is 4-byte aligned (the kernel reads a row as 41
-    32-bit words; a row is 164 bytes, so no wider load is aligned)."""
+    (``csrc/ed25519_verify.cu``, 4 threads per lane) on PyTorch's current
+    stream; ``rows`` must be a contiguous [B, 82] uint16 tensor whose
+    storage is 4-byte aligned (the kernel reads a row as 41 32-bit words; a
+    row is 164 bytes, so no wider load is aligned)."""
     if rows.device.type == "cpu":
         return verify_packed_plain(rows)
     if rows.device.type != "cuda":
         raise ValueError(
             f"ed25519_verify_kernel_packed: unsupported device {rows.device}"
         )
+    out = _launch_verify_packed(rows)
+    backend.count_launch(ed25519_verify_kernel_packed)
+    return out
+
+
+def _launch_verify_packed(rows: torch.Tensor) -> torch.Tensor:
+    """K7 after the wrapper-side checks; counts no launch."""
     n = rows.shape[0]
-    backend.require(rows, torch.uint16, (n, PACKED_COLS), "ed25519 verify rows")
-    if rows.data_ptr() % 4:
-        raise ValueError("ed25519 verify rows: storage must be 4-byte aligned")
+    backend.require(rows, torch.uint16, (n, PACKED_COLS), "ed25519 verify rows", align=4)
     out = torch.empty(n, dtype=torch.bool, device=rows.device)
     lib = backend.EXTENSION.library("ed25519_verify")
     with torch.cuda.device(rows.device):  # the launch goes to the current device
@@ -199,7 +205,6 @@ def ed25519_verify_kernel_packed(rows: torch.Tensor) -> torch.Tensor:
             backend.current_stream(rows.device),
         )
     backend.check(lib, rc, "ed25519_verify")
-    backend.count_launch(ed25519_verify_kernel_packed)
     return out
 
 
@@ -213,11 +218,12 @@ def ed25519_verify_kernel(ax, ay, u1, u2, ry, rsign, valid) -> torch.Tensor:
     [B] bool (the reference's ``ed25519_verify_kernel``).
 
     CPU: the plain version (any integer dtypes).  CUDA: K7'
-    (``csrc/ed25519_verify.cu``, K7's lane function over the arrays) on
-    PyTorch's current stream; the five limb arrays must be contiguous
-    [B, 16] int32 tensors of u32 limbs (each < 2^16), rsign a contiguous
-    [B] int32 tensor of u32 bits and valid a contiguous [B] bool tensor,
-    all on one device."""
+    (``csrc/ed25519_verify.cu``, K7's lane function over the arrays, 4
+    threads per lane) on PyTorch's current stream; the five limb arrays
+    must be contiguous [B, 16] int32 tensors of u32 limbs (each < 2^16)
+    whose storage is 8-byte aligned (the kernel reads two limbs at a time),
+    rsign a contiguous [B] int32 tensor of u32 bits and valid a contiguous
+    [B] bool tensor, all on one device."""
     arrays = (ax, ay, u1, u2, ry, rsign, valid)
     dev = ax.device
     if any(a.device != dev for a in arrays):
@@ -226,11 +232,20 @@ def ed25519_verify_kernel(ax, ay, u1, u2, ry, rsign, valid) -> torch.Tensor:
         return verify_plain(*arrays)
     if dev.type != "cuda":
         raise ValueError(f"ed25519_verify_kernel: unsupported device {dev}")
-    n = ax.shape[0]
+    out = _launch_verify_arrays(arrays)
+    backend.count_launch(ed25519_verify_kernel)
+    return out
+
+
+def _launch_verify_arrays(arrays) -> torch.Tensor:
+    """K7' after the wrapper-side checks; counts no launch."""
+    n = arrays[0].shape[0]
+    dev = arrays[0].device
     for name, a in zip(_VERIFY_LIMB_ARGS, arrays[:5]):
-        backend.require(a, torch.int32, (n, limbs.NLIMBS), f"ed25519 verify {name}")
-    backend.require(rsign, torch.int32, (n,), "ed25519 verify rsign")
-    backend.require(valid, torch.bool, (n,), "ed25519 verify valid")
+        backend.require(a, torch.int32, (n, limbs.NLIMBS), f"ed25519 verify {name}",
+                        align=8)
+    backend.require(arrays[5], torch.int32, (n,), "ed25519 verify rsign", align=4)
+    backend.require(arrays[6], torch.bool, (n,), "ed25519 verify valid")
     out = torch.empty(n, dtype=torch.bool, device=dev)
     lib = backend.EXTENSION.library("ed25519_verify")
     with torch.cuda.device(dev):  # the launch goes to the current device
@@ -239,7 +254,6 @@ def ed25519_verify_kernel(ax, ay, u1, u2, ry, rsign, valid) -> torch.Tensor:
             backend.current_stream(dev),
         )
     backend.check(lib, rc, "ed25519_verify_arrays")
-    backend.count_launch(ed25519_verify_kernel)
     return out
 
 
@@ -493,12 +507,27 @@ def comb_table_limbs() -> torch.Tensor:
     return torch.from_numpy(_comb_table_np().astype(np.int64))
 
 
+def _addend_table_np() -> np.ndarray:
+    """K8's table from :func:`_comb_table_np`: [64, 16, 3, 8] u32 words of
+    each row's addend terms (y - x, y + x, 2d*t) as plain residues mod p
+    (the kernel's field ops work on plain values; the reference's rows
+    are their Montgomery images)."""
+    r_inv = pow(1 << 256, -1, P)
+    ints = limbs.from_limbs_batch(_comb_table_np().reshape(-1, limbs.NLIMBS))
+    terms = []
+    for x_m, y_m, t_m in zip(ints[0::3], ints[1::3], ints[2::3]):
+        x, y, t = (v * r_inv % P for v in (x_m, y_m, t_m))
+        terms += [(y - x) % P, (y + x) % P, 2 * D * t % P]
+    tab = limbs.to_limbs_batch(terms)
+    words = tab[:, 0::2] | (tab[:, 1::2] << np.uint32(16))
+    return words.reshape(_COMB_WINDOWS, 16, 3, 8)
+
+
 @functools.lru_cache(maxsize=None)
 def comb_table_words(device: str) -> torch.Tensor:
-    """K8's comb table on the CUDA ``device``, uploaded once: [64, 16, 3, 8]
-    32-bit words (stored as int32, 96 KiB)."""
-    tab = _comb_table_np()
-    words = tab[..., 0::2] | (tab[..., 1::2] << np.uint32(16))
+    """K8's table (:func:`_addend_table_np`) on ``device``, built and
+    uploaded once: [64, 16, 3, 8] 32-bit words stored as int32 (96 KiB)."""
+    words = _addend_table_np()
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(device)
 
 
@@ -506,15 +535,25 @@ def ed25519_rb_kernel(r: torch.Tensor) -> torch.Tensor:
     """Batched r*B: [B, 16] uint16 nonce limbs -> [B, 3, 16] uint16
     (X, Y, Z), extended coordinates, Montgomery domain.
 
-    CPU: the plain version.  CUDA: K8 (``csrc/ed25519_rb.cu``, one
-    thread per lane, the table in global memory) on the current stream."""
+    CPU: the plain version.  CUDA: K8 (``csrc/ed25519_rb.cu``, 4 threads
+    per lane, the table in global memory) on
+    the current stream; ``r`` must be contiguous and its storage 16-byte
+    aligned (the kernel reads a nonce as two 16-byte words)."""
     if r.device.type == "cpu":
         return rb_plain(r, comb_table_limbs()).to(torch.uint16)
     if r.device.type != "cuda":
         raise ValueError(f"ed25519_rb_kernel: unsupported device {r.device}")
+    out = _launch_rb(r)
+    backend.count_launch(ed25519_rb_kernel)
+    return out
+
+
+def _launch_rb(r: torch.Tensor) -> torch.Tensor:
+    """K8 after the wrapper-side checks; counts no launch."""
     n = r.shape[0]
-    backend.require(r, torch.uint16, (n, limbs.NLIMBS), "rb nonces")
+    backend.require(r, torch.uint16, (n, limbs.NLIMBS), "rb nonces", align=16)
     table = comb_table_words(str(r.device))
+    backend.require(table, torch.int32, (_COMB_WINDOWS, 16, 3, 8), "rb table", align=16)
     out = torch.empty((n, 3, limbs.NLIMBS), dtype=torch.uint16, device=r.device)
     lib = backend.EXTENSION.library("ed25519_rb")
     with torch.cuda.device(r.device):  # the launch goes to the current device
@@ -523,7 +562,6 @@ def ed25519_rb_kernel(r: torch.Tensor) -> torch.Tensor:
             backend.current_stream(r.device),
         )
     backend.check(lib, rc, "ed25519_rb")
-    backend.count_launch(ed25519_rb_kernel)
     return out
 
 

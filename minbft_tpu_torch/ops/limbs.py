@@ -413,9 +413,9 @@ def mont_mul_many(spec: FieldSpec, pairs) -> list:
 # its three lowerings, _mont_finish, _cond_sub, add_mod, sub_mod,
 # mont_pow_static, mont_inv), which the TPU program inlined into every
 # kernel.  On the H100 it is csrc/p256_field.cuh (mod the P-256 prime,
-# inlined into K2-K4) and csrc/field.cuh (mod n and 2^255 - 19, inlined into
-# K7 and K8); csrc/field_op.cu wraps one op per launch so the libraries can
-# be held against the plain ops above.
+# inlined into K2-K4), csrc/ed25519_field.cuh (mod 2^255 - 19, inlined into
+# K7 and K8) and csrc/field.cuh (mod n); csrc/field_op.cu wraps one op per
+# launch so the libraries can be held against the plain ops above.
 
 FIELD_OPS = (
     "mul", "sqr", "add", "sub", "to_mont", "from_mont", "inv",
@@ -464,9 +464,10 @@ def field_op(op: str, a: torch.Tensor, b: torch.Tensor, field: str = "p"):
     the modulus :func:`field_spec` names (``"p"``, ``"n"`` or ``"ed"``).
 
     CPU tensors take the plain version; CUDA tensors launch K1
-    (``csrc/field_op.cu``, one thread per lane) or raise.  Mod ``"p"`` the
-    kernel runs the ops specialised to p (``csrc/p256_field.cuh``) and
-    reads 32-bit words, so ``a`` and ``b`` must be 4-byte aligned there."""
+    (``csrc/field_op.cu``, one thread per lane) or raise.  Mod ``"p"`` and
+    ``"ed"`` the kernel runs the ops specialised to that prime
+    (``csrc/p256_field.cuh``, ``csrc/ed25519_field.cuh``) and reads 32-bit
+    words, so ``a`` and ``b`` must be 4-byte aligned there."""
     spec = field_spec(field)
     if a.device.type == "cpu":
         out = field_op_plain(op, spec, a.to(torch.int64), b.to(torch.int64))
@@ -479,11 +480,11 @@ def field_op(op: str, a: torch.Tensor, b: torch.Tensor, field: str = "p"):
 
 
 def _launch_field_op(op: str, a: torch.Tensor, b: torch.Tensor, field: str, t: int):
-    """K1 with ``t`` threads per group (4 mod ``"p"`` runs the multiplies
-    of 4 lanes through the group form K2 and K3 use, one to a thread),
-    after the wrapper-side checks; counts no launch."""
+    """K1 with ``t`` threads per group (4 mod ``"p"`` or ``"ed"`` runs the
+    multiplies of 4 lanes through the group form K2/K3 or K7/K8 use, one
+    to a thread), after the wrapper-side checks; counts no launch."""
     n = a.shape[0]
-    align = 4 if field == "p" else 1
+    align = 1 if field == "n" else 4
     backend.require(a, torch.uint16, (n, NLIMBS), "field_op a", align=align)
     backend.require(b, torch.uint16, (n, NLIMBS), "field_op b", align=align)
     if b.device != a.device:

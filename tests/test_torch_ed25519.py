@@ -221,6 +221,49 @@ def test_wrappers_default_to_cuda_and_reject_other_devices(monkeypatch):
     assert port.ed25519_verify_kernel.launches == 0
 
 
+def test_group_size_and_the_launchers_alignment_checks():
+    """K7/K7' and K8 run a group of 4 threads per lane at every batch (no
+    size to pick; K1, their field ops' test kernel, runs at 1 and 4), and
+    each launcher refuses a view whose storage is misaligned for the
+    kernel's widest load (which would fault on the card) before a kernel
+    sees it."""
+    def misaligned(dtype, cols, skip):
+        """Two contiguous rows that start ``skip`` elements into their storage."""
+        return torch.zeros(2 * cols + skip, dtype=dtype)[skip:].view(2, cols)
+
+    rows = misaligned(torch.uint16, port.PACKED_COLS, 1)  # 2 bytes in, u32 reads
+    nonces = misaligned(torch.uint16, 16, 4)  # 8 bytes in, 16-byte reads
+    limb = misaligned(torch.int32, 16, 1)  # 4 bytes in, 8-byte reads
+    rsign = torch.zeros(3, dtype=torch.int32)[1:]  # aligned: 4-byte reads
+    flags = torch.zeros(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        port._launch_verify_packed(rows)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port._launch_rb(nonces)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        port._launch_verify_arrays([limb] * 5 + [rsign, flags])
+    for t in (1, 4):
+        with pytest.raises(ValueError, match="4-byte aligned"):
+            limbs._launch_field_op("mul", misaligned(torch.uint16, 16, 1),
+                                   torch.zeros((2, 16), dtype=torch.uint16), "ed", t)
+
+
+def test_k8_table_holds_the_reference_rows_addend_terms():
+    """K8's table (plain y - x, y + x, 2d*t) is the reference's comb table
+    (Montgomery x, y, t) row for row; the v = 0 rows are the identity's
+    (1, 1, 0)."""
+    words = port.comb_table_words("cpu").numpy().view(np.uint32)
+    got = [sum(int(w) << (32 * j) for j, w in enumerate(row))
+           for row in words.reshape(-1, 8)]
+    ref_tab = ref._comb_table_np()
+    r_inv = pow(R, -1, port.P)
+    for j, v in ((0, 0), (0, 1), (5, 7), (63, 15)):
+        x, y, t = (v_m * r_inv % port.P for v_m in limbs.from_limbs_batch(ref_tab[j, v]))
+        want = [(y - x) % port.P, (y + x) % port.P, 2 * hc.ED_D * t % port.P]
+        assert got[(j * 16 + v) * 3 : (j * 16 + v) * 3 + 3] == want
+    assert got[:3] == [1, 1, 0]
+
+
 def test_engine_verify_queue_stages_the_reference_rows_and_dedups(monkeypatch, lanes):
     """The 8-lane bucket each engine hands its kernel (padding included)
     and the verdicts agree exactly; a re-submitted item is a memo hit."""
