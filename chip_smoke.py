@@ -8,7 +8,10 @@ It builds the port's CUDA kernels from ``minbft_tpu_torch/csrc`` (into
 that does not hold:
 
 1. the card's name and power limit (``nvidia-smi``), the build time and
-   ``torch.version.cuda``;
+   ``torch.version.cuda``, every kernel instance's registers, stack frame
+   and spills (``-Xptxas -v``), and, where the toolkit has ``cuobjdump``,
+   the SASS instructions per thread of K5's and K6's kernels with their
+   longest chain of dependent instructions;
 2. K1 (field libraries, ``field_op`` test kernel) against the plain
    PyTorch field ops, every op, 4,096 random and edge elements, exact:
    mod the P-256 prime p and the Ed25519 prime 2^255 - 19 the ops
@@ -44,7 +47,8 @@ that does not hold:
    8,192 (the bench's HMAC batch) and 16,384 distinct rows against the
    plain version and Python's ``hmac`` on every lane, with forged lanes
    (one flipped bit in the mac, the key or the message) and all-zero
-   padding rows;
+   padding rows; then K5's and K6's device ms before and after their
+   redesign (16,384 is a batch no path sends);
 7. K7 (batched Ed25519 verify) at B = 1,024, 16,384 and 32,768 (the
    bench's batch) distinct rows,
    honest lanes signed on the card, with adversarial lanes (tampered
@@ -79,7 +83,9 @@ that does not hold:
    K4, ``sign_finish``; its launch window) gives signatures
    byte-identical to ``sign_finish`` on K3's (X, Z) on every lane and to
    ``hostcrypto.ecdsa_sign_py`` on a sample, no lane has Z = 0, and
-   (X, Z) equals the plain ladder bit for bit on at least 64 lanes;
+   (X, Z) equals the plain ladder bit for bit on at least 64 lanes, every
+   group size as for K2; then K4's device ms before and after its
+   redesign;
 12. the multi-array forms on the packed phases' rows, at the packed
    sibling's bucket, 16,384 and the bench's batch (32,768; 8,192 for
    HMAC): K2' (eight arrays) and K7' (seven), every group size as for
@@ -88,7 +94,7 @@ that does not hold:
    then K7's, K7''s and K8's device ms before and after their redesign
    for Hopper (a group of 4 threads per lane); K6' (three arrays) equals K6 and its plain version, and
    K6s (MAC generation) Python's ``hmac`` and its plain version, on every
-   lane;
+   lane, then their device ms before and after their redesign;
 13. the bench entry point, ``minbft_tpu_torch.bench.main``, in-process:
    the kernel section at its default batches (32,768), then the ``mac``
    (n = 7, 8,000 requests) and ``cfg4`` (n = 13, bucket 128, 3,000
@@ -201,6 +207,18 @@ ED_BEFORE_MS = {
     "K7'": {1024: 8.474, 16384: 8.720, 32768: 9.231},
     "K8": {1024: 0.489, 2048: 0.492, 8192: 0.538, 16384: 0.539},
 }
+# K5's, K6's, K6''s and K6s's device ms before their redesign for Hopper
+# (one thread per lane, four compressions in series) and K4's (one thread
+# per lane): PERF.md section 6, the smoke of the commit before it (NVIDIA
+# H100 80GB HBM3, 700.00 W).  No path sends an HMAC batch above 8,192
+# lanes; 16,384 is checked and timed all the same.
+SHA_BEFORE_MS = {
+    "K5": {4096: 0.0042},
+    "K6": {128: 0.0076, 512: 0.0081, 1024: 0.0078, 8192: 0.0095, 16384: 0.0098},
+    "K6'": {512: 0.0082, 8192: 0.0096, 16384: 0.0097},
+    "K6s": {512: 0.0085, 8192: 0.0098, 16384: 0.0099},
+}
+K4_BEFORE_MS = {"K4": {512: 1.549, 16384: 1.915}}
 # Requests of cluster phase A (the main path, n = 7).
 CLUSTER_A_REQUESTS = 10_000
 # Requests of cluster phase C (BASELINE config 5, n = 31).  Config 5
@@ -407,6 +425,19 @@ def kernel_entry(runs: dict, main: int, plain_ms: float, max_abs_err: int = 0,
     return entry
 
 
+def before_after(kernels: dict, before: dict) -> str:
+    """'was / now (factor)' of each kernel's device ms at each batch of
+    ``before`` ({kernel: {batch: ms before}}), from the kernels line's
+    entries."""
+    parts = []
+    for kid, by_b in before.items():
+        k = kernels[kid]
+        for b, was in by_b.items():
+            now = k["other"][b][1] if b in k.get("other", {}) else k["device_ms"]
+            parts.append(f"{kid} B={b}: {was:.4f} / {now:.4f} ({was / now:.2f}x)")
+    return "; ".join(parts)
+
+
 def ptxas_kernels(log: str) -> dict:
     """nvcc -Xptxas -v output -> {kernel entry (mangled): (registers, stack
     frame bytes, spill store bytes, spill load bytes)}."""
@@ -426,6 +457,61 @@ def ptxas_kernels(log: str) -> dict:
         if m and entry:
             out[entry] = (int(m.group(1)),) + frame
             entry = None
+    return out
+
+
+def sass_profile(lib: str) -> dict:
+    """``cuobjdump -sass`` of a built library -> {kernel entry (mangled):
+    (instructions, SHF + LOP3 (the ALU pipe only), IADD3, IMAD, the longest
+    chain of dependent instructions)}: a per-lane instruction count of a
+    straight-line kernel and the depth of its critical path, read from the
+    code the card runs.  Empty where the toolkit has no cuobjdump."""
+    import re
+    from collections import Counter, defaultdict
+
+    from minbft_tpu_torch.ops import backend
+
+    tool = os.path.join(os.path.dirname(backend._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    reg = re.compile(r"(?<![A-Za-z])(U?R\d+|P\d)(\.64)?")
+
+    def regs(operand):
+        out = []
+        for m in reg.finditer(operand):
+            out.append(m.group(1))
+            if m.group(2):  # a register pair
+                pre = m.group(1).rstrip("0123456789")
+                out.append(pre + str(int(m.group(1)[len(pre):]) + 1))
+        return out
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(\S+)\s*(.*?);", line)
+        if m and cur is not None:
+            cur.append((m.group(1).split(".")[0], [o.strip() for o in m.group(2).split(",")]))
+    out = {}
+    for name, ins in funcs.items():
+        count = Counter(op for op, _ in ins)
+        depth, chain = defaultdict(int), 0
+        for op, ops in ins:
+            if op in ("ST", "STG", "STS", "BRA", "EXIT", "BAR", "RET", "NOP", "BSSY",
+                      "BSYNC", "WARPSYNC") or not ops[0]:
+                continue
+            nd = 2 if op in ("ISETP", "SHFL") else 1  # predicate and value outputs
+            d = 1 + max([depth[r] for o in ops[nd:] for r in regs(o)] + [0])
+            for o in ops[:nd]:
+                for r in regs(o):
+                    depth[r] = d
+            chain = max(chain, d)
+        out[name] = (len(ins), count["SHF"] + count["LOP3"], count["IADD3"],
+                     count["IMAD"], chain)
     return out
 
 
@@ -1151,6 +1237,16 @@ def main() -> int:
     for src, kern in ptx.items():
         for entry, report in kern.items():
             print(f"  ptxas {src}: {names[entry]}: {regs_phrase(*report)}")
+    # The SHA-256 kernels' code as the card runs it: instructions per
+    # thread (a K6 lane runs two such streams, one on each of its threads)
+    # and the longest chain of dependent instructions.
+    for src in ("sha256_compress", "hmac_sha256"):
+        prof = sass_profile(os.path.join(backend.EXTENSION.build_dir, f"lib{src}.so"))
+        if not prof:
+            print(f"  SASS {src}: no cuobjdump in the toolkit")
+        for entry, (n_ins, alu, iadd3, imad, chain) in prof.items():
+            print(f"  SASS {src}: {demangle([entry])[entry]}: {n_ins} instructions "
+                  f"({alu} SHF/LOP3, {iadd3} IADD3, {imad} IMAD), a chain of {chain}")
 
     def bound(ops: float, nbytes: float):
         """Least time for ``ops`` issues at 64 lanes per SM per clock
@@ -1309,9 +1405,7 @@ def main() -> int:
     kernels["K2"] = kernel_entry(k2, 512, plain_ms, groups=k2_groups)
     print(f"K2 plain B=512: {plain_ms:.1f} ms")
     print("K2 device ms before (one thread per lane on the generic field ops, "
-          "PERF.md) / after: " + "; ".join(
-              f"B={b}: {K2_BEFORE_MS[b]:.3f} / {k2[b][1]:.3f} "
-              f"({K2_BEFORE_MS[b] / k2[b][1]:.1f}x)" for b in (512, 128)))
+          "PERF.md) / after: " + before_after(kernels, {"K2": K2_BEFORE_MS}))
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # -- phase 4: K3 -----------------------------------------------------------
@@ -1450,12 +1544,15 @@ def main() -> int:
                          bound_ms=k5_bound, bound_by=k5_by, max_abs_err=k5_err)
     print(f"K5 B={nk5}: equal plain on every word, lane 0 = SHA-256('abc'); "
           f"{k5_ms:.4f} ms per call, {k5_dev_ms:.4f} ms on the device (plain "
-          f"{k5_plain_ms:.3f} ms, bound {k5_bound:.5f} ms by {k5_by})")
+          f"{k5_plain_ms:.3f} ms, bound {k5_bound:.5f} ms by {k5_by}); device ms "
+          "before its redesign (PERF.md) / after: "
+          + before_after(kernels, {"K5": SHA_BEFORE_MS["K5"]}))
 
     k6 = {}
     k6_runs = {}  # rows, verdicts and forged lanes, for phase 12
     # cfg4's bucket, the deployment bucket, cluster C's bucket, the
-    # bench's HMAC batch (K6' and K6s run there) and a large batch.
+    # bench's HMAC batch (K6' and K6s run there) and a larger batch, which
+    # no path sends.
     for bsz in (bench.CFG4_BUCKET, 512, 1024, bench.HMAC_BATCH, 16384):
         rows, expect, forged_idx = hmac_rows(np_rng, bsz)
         live = rows[rows.any(axis=1)]
@@ -1487,6 +1584,9 @@ def main() -> int:
             )
     kernels["K6"] = kernel_entry(k6, 512, k6_plain_ms)
     print(f"K6 plain B=512: {k6_plain_ms:.1f} ms")
+    print("K6 device ms before its redesign (one thread per lane, four compressions "
+          "in series; PERF.md) / after (B=16384: no path sends it): "
+          + before_after(kernels, {"K6": SHA_BEFORE_MS["K6"]}))
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     # -- phase 7: K7 and K8 ----------------------------------------------------------
@@ -1626,6 +1726,7 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 11")
     # -- phase 11: K4 and the signing path through it -----------------------------
     k4 = {}
+    k4_groups = {}
     ladder_window = {}
     for bsz in (512, 16384):
         # RFC 6979 nonces of bsz - 4 items, then k = 1, 2, n - 1 and one
@@ -1669,12 +1770,18 @@ def main() -> int:
               f"and to host on {len(host)}; {ms:.3f} ms per batch ({dev_ms:.3f} on the "
               f"device), bound {b_ms:.4f} ms by {b_by} ({imads / bsz:,.0f} IMAD issues "
               f"per lane)")
+        k4_groups[bsz] = every_group(
+            "K4", bsz, xz4, dev_ms, lambda g: p256._launch_kg_ladder(k_d, g),
+            ptx["p256_kg_ladder"], "p256_kg_ladder_kernel")
         if bsz == 512:
             k4_plain_ms = cuda_ms(torch, lambda: p256.kg_ladder_plain(k_d), reps=1, warm=0)
     path_launches["sign_ladder"] = ladder_window
     check(ladder_window["K4"] > 0, f"sign_ladder: K4 was not launched {ladder_window}")
-    kernels["K4"] = kernel_entry(k4, 512, k4_plain_ms)
+    every_group_picked("K4", k4_groups)
+    kernels["K4"] = kernel_entry(k4, 512, k4_plain_ms, groups=k4_groups)
     print(f"K4 plain B=512: {k4_plain_ms:.1f} ms")
+    print("K4 device ms before its redesign (one thread per lane; PERF.md) / after: "
+          + before_after(kernels, K4_BEFORE_MS))
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 12")
     # -- phase 12: the multi-array forms on the packed phases' rows ----------------
@@ -1736,12 +1843,8 @@ def main() -> int:
         if bsz == 1024:
             plain_ms = cuda_ms(torch, lambda: ed25519.verify_plain(*te), reps=1, warm=0)
     kernels["K7'"] = kernel_entry(runs, 1024, plain_ms)
-    after = {(kid, b): (kernels[kid]["device_ms"] if b == 1024 else kernels[kid]["other"][b][1])
-             for kid, by_b in ED_BEFORE_MS.items() for b in by_b}
     print("Ed25519 device ms before (one thread per lane on the generic field ops, "
-          "PERF.md) / after: " + "; ".join(
-              f"{kid} B={b}: {was:.3f} / {after[kid, b]:.3f} ({was / after[kid, b]:.1f}x)"
-              for kid, by_b in ED_BEFORE_MS.items() for b, was in by_b.items()))
+          "PERF.md) / after: " + before_after(kernels, ED_BEFORE_MS))
 
     import hmac as py_hmac
 
@@ -1788,6 +1891,9 @@ def main() -> int:
                                 reps=3, warm=1)
     kernels["K6'"] = kernel_entry(runs, 512, k6v_plain)
     kernels["K6s"] = kernel_entry(sign_runs, 512, k6s_plain)
+    print("K6' and K6s device ms before their redesign (PERF.md) / after (B=16384: "
+          "no path sends it): "
+          + before_after(kernels, {k: SHA_BEFORE_MS[k] for k in ("K6'", "K6s")}))
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 13")
     # -- phase 13: the bench entry point, in-process ------------------------------

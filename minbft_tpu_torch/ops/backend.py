@@ -52,7 +52,7 @@ LAUNCHERS = {
         "mbt_p256_verify_arrays": [_P] * 9 + [_I, _I, _P],
     },
     "p256_kg": {"mbt_p256_kg": [_P, _P, _P, _I, _I, _P]},
-    "p256_kg_ladder": {"mbt_p256_kg_ladder": [_P, _P, _I, _P]},
+    "p256_kg_ladder": {"mbt_p256_kg_ladder": [_P, _P, _I, _I, _P]},
     "sha256_compress": {"mbt_sha256_compress": [_P, _P, _P, _I, _P]},
     "hmac_sha256": {
         "mbt_hmac_sha256_verify": [_P, _P, _I, _P],

@@ -13,7 +13,8 @@ K6's batch is ``[B, 24]`` u32 rows of key | msg | mac as big-endian words
 (the engine's staging layout); K6' takes the three ``[B, 8]`` arrays and
 K6s keys and msgs, as the reference's bench does.  The CUDA kernels are in
 ``csrc/hmac_sha256.cu``; they share one ``hmac32`` and inline K5
-(``csrc/sha256.cuh``).
+(``csrc/sha256.cuh``).  A lane runs on 2 threads, which compress the
+ipad and opad blocks side by side, so its chain is three compressions.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def hmac_verify_kernel_packed(rows: torch.Tensor) -> torch.Tensor:
     """Batched HMAC-SHA256 verify over packed rows -> [B] bool.
 
     CPU: the plain version (any integer dtype).  CUDA: K6
-    (``csrc/hmac_sha256.cu``, one thread per lane) on PyTorch's current
+    (``csrc/hmac_sha256.cu``, 2 threads per lane) on PyTorch's current
     stream; ``rows`` must be a contiguous [B, 24] int32 tensor of u32
     bits whose storage starts 16-byte aligned."""
     if rows.device.type == "cpu":

@@ -18,8 +18,9 @@ the plain versions below and the CUDA kernels (``csrc/p256_verify.cu``,
 ``csrc/p256_kg.cu``, ``csrc/p256_kg_ladder.cu``) use the reference's
 exact point formulas and selects, so their verdicts and (X, Z) bits equal
 the reference's on every lane, adversarial ones included.  The kernels
-run their field ops specialised to p (``csrc/p256_field.cuh``), K2 and K3
-with a group of 4 threads per lane at small batches (:func:`group_size`).
+run their field ops specialised to p (``csrc/p256_field.cuh``), K2, K3
+and K4 with a group of 4 threads per lane at small batches
+(:func:`group_size`).
 
 Wrappers take CPU tensors to the plain version and CUDA tensors to the
 kernel; any other device raises.
@@ -61,13 +62,13 @@ ORDER = FieldSpec.make(N)
 _GX_M = (GX << 256) % P  # Montgomery-domain constants
 _GY_M = (GY << 256) % P
 
-# Threads per lane of K2/K2' and K3 on the card: 4 for a batch of at most
+# Threads per lane of K2/K2', K3 and K4 on the card: 4 for a batch of at most
 # GROUP_LIMIT lanes, else 1.  A group of 4 threads shares out the
 # independent multiplies of each level of a point formula
 # (csrc/p256_field.cuh P256Tasks): a shorter chain per lane where the card
 # is nearly empty; where it is full the group's duplicated work costs
-# issue and one thread per lane wins.  chip_smoke.py phases 3, 4 and 12
-# time both sizes at every batch they check (PERF.md section 6): 4 wins
+# issue and one thread per lane wins.  chip_smoke.py phases 3, 4, 11 and
+# 12 time both sizes at every batch they check (PERF.md section 6): 4 wins
 # up to 2,048 lanes, 1 from 16,384; no path sends a batch in between.
 GROUP_SIZES = (1, 4)
 GROUP_LIMIT = 4096
@@ -659,22 +660,31 @@ def ecdsa_kg_ladder_kernel(k: torch.Tensor) -> torch.Tensor:
     domain: K3's layout, so :func:`sign_finish` takes either kernel's
     output.  The values equal the reference's u32 output bit for bit.
 
-    CPU: the plain version.  CUDA: K4 (``csrc/p256_kg_ladder.cu``, one
-    thread per lane) on the current stream."""
+    CPU: the plain version.  CUDA: K4 (``csrc/p256_kg_ladder.cu``,
+    :func:`group_size` threads per lane: 4 up to ``GROUP_LIMIT`` lanes, 1
+    above) on the current stream; ``k`` must be contiguous and its storage
+    16-byte aligned (the kernel reads a nonce as two 16-byte words)."""
     if k.device.type == "cpu":
         return kg_ladder_plain(k).to(torch.uint16)
     if k.device.type != "cuda":
         raise ValueError(f"ecdsa_kg_ladder_kernel: unsupported device {k.device}")
+    out = _launch_kg_ladder(k, group_size(k.shape[0]))
+    backend.count_launch(ecdsa_kg_ladder_kernel)
+    return out
+
+
+def _launch_kg_ladder(k: torch.Tensor, t: int) -> torch.Tensor:
+    """K4 at ``t`` threads per lane, after the wrapper-side checks; counts
+    no launch."""
     n = k.shape[0]
-    backend.require(k, torch.uint16, (n, limbs.NLIMBS), "kg ladder nonces")
+    backend.require(k, torch.uint16, (n, limbs.NLIMBS), "kg ladder nonces", align=16)
     out = torch.empty((n, 2, limbs.NLIMBS), dtype=torch.uint16, device=k.device)
     lib = backend.EXTENSION.library("p256_kg_ladder")
     with torch.cuda.device(k.device):  # the launch goes to the current device
         rc = lib.mbt_p256_kg_ladder(
-            backend.ptr(k), backend.ptr(out), n, backend.current_stream(k.device)
+            backend.ptr(k), backend.ptr(out), n, t, backend.current_stream(k.device)
         )
     backend.check(lib, rc, "p256_kg_ladder")
-    backend.count_launch(ecdsa_kg_ladder_kernel)
     return out
 
 

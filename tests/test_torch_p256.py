@@ -164,7 +164,7 @@ def test_wrappers_default_to_cuda_and_reject_other_devices(monkeypatch):
 
 
 def test_group_size_and_the_launchers_alignment_checks():
-    """K2/K2' and K3 get 4 threads per lane up to GROUP_LIMIT lanes, 1
+    """K2/K2', K3 and K4 get 4 threads per lane up to GROUP_LIMIT lanes, 1
     above; and each launcher refuses a view whose storage is misaligned for
     the kernel's widest load (which would fault on the card) before a
     kernel sees it."""
@@ -186,6 +186,8 @@ def test_group_size_and_the_launchers_alignment_checks():
             port._launch_verify_packed(rows, t)
         with pytest.raises(ValueError, match="16-byte aligned"):
             port._launch_kg(nonces, t)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            port._launch_kg_ladder(nonces, t)
         with pytest.raises(ValueError, match="8-byte aligned"):
             port._launch_verify_arrays([limb] * 6 + [flags, flags], t)
         with pytest.raises(ValueError, match="4-byte aligned"):

@@ -1,5 +1,5 @@
 """The P-256 field ops of ``csrc/p256_field.cuh`` and the lane functions of
-K2 and K3, compiled for the host with g++ and held against Python's big
+K2, K3 and K4, compiled for the host with g++ and held against Python's big
 integers and the port's plain versions.
 
 The header's PTX carry primitives have host bodies (an emulated carry flag)
@@ -9,8 +9,8 @@ kernel sources are included whole: their kernels and launchers sit under
 ``__CUDACC__``, and a stub ``cuda_runtime.h`` stands in for CUDA's.  So the
 arithmetic of both geometries the launchers pick (one thread per lane, a
 group of 4) runs here exactly as written; what only the card shows (the
-PTX itself, ptxas) the smoke checks there (``chip_smoke.py`` phases 2-4
-and 12).  Skipped where no g++ is installed.
+PTX itself, ptxas) the smoke checks there (``chip_smoke.py`` phases 2-4,
+11 and 12).  Skipped where no g++ is installed.
 """
 
 from __future__ import annotations
@@ -73,6 +73,9 @@ namespace k2lane {
 }
 namespace k3lane {
 #include "p256_kg.cu"
+}
+namespace k4lane {
+#include "p256_kg_ladder.cu"
 }
 
 // Runs body(rank) on T host threads (one group), or inline for T = 1.
@@ -152,8 +155,22 @@ template <int T> void k3(int n, const uint16_t* k, const uint32_t* table, uint32
   });
 }
 
+template <int T> void k4(int n, const uint16_t* k, uint32_t* out) {
+  on_group(T, [&](int t) {
+    P256Field<T> f;
+    for (int i = 0; i < n; ++i) {
+      Pt r = k4lane::kg_ladder_lane(f, k + 16 * i);
+      if (t == 0) {
+        memcpy(out + 16 * i, r.x.v, 32);
+        memcpy(out + 16 * i + 8, r.z.v, 32);
+      }
+    }
+  });
+}
+
 // stdin: "ops T op n" + 16 words a line | "k2 T n" + 98 u16 a row |
-// "k3 T n" + 16 u16 a row, then the comb table's 16,384 words; hex.
+// "k3 T n" + 16 u16 a row, then the comb table's 16,384 words |
+// "k4 T n" + 16 u16 a row; hex.
 int main() {
   char kind[8];
   int T, n, op = 0;
@@ -180,12 +197,20 @@ int main() {
     else k2<4>(n, rows.data(), out.data());
     for (int i = 0; i < n; ++i) printf("%u\n", out[i]);
   } else {
-    std::vector<uint16_t> kk(16 * n);
-    for (auto& x : kk) { rd(v); x = (uint16_t)v; }
-    std::vector<uint32_t> table(64 * 16 * 16), out(16 * n);
-    for (auto& x : table) { rd(v); x = v; }
-    if (T == 1) k3<1>(n, kk.data(), table.data(), out.data());
-    else k3<4>(n, kk.data(), table.data(), out.data());
+    // Nonce rows 16-byte aligned, as the kernels read them.
+    std::vector<uint4> kbuf(2 * n);
+    uint16_t* kk = (uint16_t*)kbuf.data();
+    for (int i = 0; i < 16 * n; ++i) { rd(v); kk[i] = (uint16_t)v; }
+    std::vector<uint32_t> out(16 * n);
+    if (k == "k3") {
+      std::vector<uint32_t> table(64 * 16 * 16);
+      for (auto& x : table) { rd(v); x = v; }
+      if (T == 1) k3<1>(n, kk, table.data(), out.data());
+      else k3<4>(n, kk, table.data(), out.data());
+    } else {
+      if (T == 1) k4<1>(n, kk, out.data());
+      else k4<4>(n, kk, out.data());
+    }
     for (int i = 0; i < 16 * n; ++i) printf("%x%c", out[i], i % 16 == 15 ? '\n' : ' ');
   }
   return 0;
@@ -337,3 +362,23 @@ def test_k3_lane_matches_the_plain_version(host_bin, group):
     want = p256.kg_plain(torch.from_numpy(k.astype(np.int64)), p256.comb_table_limbs())
     np.testing.assert_array_equal(got.view(np.uint16).reshape(len(k), 2, 16),
                                   want.numpy().astype(np.uint16))
+
+
+@pytest.fixture(scope="module")
+def ladder_nonces():
+    """k = 0, 1, 2, n - 1 and four random nonces, with the plain ladder's
+    (X, Z)."""
+    rng = random.Random(4)
+    nonces = [0, 1, 2, p256.N - 1] + [rng.randrange(1, p256.N) for _ in range(4)]
+    k = limbs.to_limbs_batch(nonces).astype(np.uint16)
+    want = p256.kg_ladder_plain(torch.from_numpy(k.astype(np.int64)))
+    return k, want.numpy().astype(np.uint16)
+
+
+@pytest.mark.parametrize("group", p256.GROUP_SIZES)
+def test_k4_lane_matches_the_plain_version(host_bin, ladder_nonces, group):
+    k, want = ladder_nonces
+    text = f"k4 {group} {len(k)}\n" + "\n".join(" ".join(f"{v:x}" for v in r) for r in k)
+    got = np.array([[int(w, 16) for w in line] for line in _run(host_bin, text)], np.uint32)
+    np.testing.assert_array_equal(got.view(np.uint16).reshape(len(k), 2, 16), want)
+    assert not want[0, 1].any() and want[1:, 1].any(axis=1).all()  # Z = 0 only for k = 0
