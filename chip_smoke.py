@@ -8,7 +8,9 @@ It builds the port's CUDA kernels from ``minbft_tpu_torch/csrc`` (into
 that does not hold:
 
 1. the card's name and power limit (``nvidia-smi``), the build time and
-   ``torch.version.cuda``, every kernel instance's registers, stack frame
+   ``torch.version.cuda``, the host's Python, CPUs, ``yaml``, ``grpc`` and
+   ``cryptography``, the native USIG's build (``g++``, ``libcrypto.so.3``,
+   into ``build/native/``), every kernel instance's registers, stack frame
    and spills (``-Xptxas -v``), and, where the toolkit has ``cuobjdump``,
    the SASS instructions per thread of K5's and K6's kernels with their
    longest chain of dependent instructions;
@@ -104,7 +106,26 @@ that does not hold:
    it ran, commit every request with no dispatch timed out and no
    host-signed lane, log no ERROR record, and launch its path's kernels
    in its window (K6 for ``mac``);
-14. one JSON line of per-kernel numbers (launches, parity, times, bounds).
+14. the deployment path, one process per replica, through the ``peer``
+   entry point (``python -m minbft_tpu_torch.sample.peer``) as a user
+   runs it: ``testnet`` (n = 4, f = 1, NATIVE_ECDSA USIGs from the native
+   module, which builds itself into ``build/native/``, 20 clients; its
+   keys.yaml must name NATIVE_ECDSA), four ``run`` processes over TCP,
+   each with its engine on cuda:0 and ``MINBFT_TRACE_DUMP`` set, one
+   ``request`` (a 64-hex result), one ``bench`` process (20 clients x
+   depth 24, 2,000 requests, its engine on cuda:0), then SIGTERM to the
+   replicas; then the port bench's ``mptcp`` section (n = 7, f = 3, seven
+   replica processes and one client process over TCP, 20 x 48, one run of
+   2,000 requests with ``MINBFT_BENCH_RUNS=1``, plus its SLO run).  Every
+   request must commit, every process exit 0 (the replicas within 60 s of
+   SIGTERM), no log hold an ERROR record (the bench reads each replica's
+   up to SIGTERM), no dispatch time out, every replica's and client's
+   engine report (the trace dump's, the bench's) show K2 and K3 launched
+   and ECDSA verify and sign batches on cuda:0, and every process report
+   a CUDA context of its own; it prints req/s, latency p50/p99, each
+   replica's host CPU seconds per wall second, the contexts, each
+   process's allocator MiB and the device memory they took together;
+15. one JSON line of per-kernel numbers (launches, parity, times, bounds).
 
 Each phase's start is printed with the seconds since the smoke began.
 Kernel times are CUDA-event medians: ``ms`` brackets one wrapper call
@@ -254,6 +275,16 @@ def bench_expected_keys(section: str) -> set:
                      f"{s}_device_signs_per_sec", f"{s}_sign_queue_mean_batch",
                      f"{s}_sign_queue_compile_s", f"{s}_sign_queue_fallback"}
         return keys
+    if section in ("mp", "mptcp"):
+        # _bench_mp_cluster's keys and _bench_mp_repeated's.
+        suffixes = {
+            "n", "f", "requests", "clients", "client_procs", "depth",
+            "committed_req_per_sec", "request_latency_p50_ms",
+            "request_latency_p99_ms", "req_per_sec_runs", "req_per_sec_mean",
+            "req_per_sec_stddev", "req_per_sec_at_p50_500ms", "slo_depth",
+            "slo_achieved_p50_ms", "slo_achieved_p99_ms",
+        }
+        return {f"{section}_{s}" for s in suffixes}
     suffixes = {
         "request_latency_p50_ms", "request_latency_p99_ms", "exec_latency_p50_ms",
         "exec_latency_p99_ms", "messages_handled", "messages_dropped", "n", "f",
@@ -540,6 +571,16 @@ def demangle(names) -> dict:
     except (OSError, subprocess.SubprocessError):
         out = names
     return dict(zip(names, out if len(out) == len(names) else names))
+
+
+def module_version(name: str) -> str:
+    """A Python module's version, or "absent"."""
+    import importlib
+
+    try:
+        return getattr(importlib.import_module(name), "__version__", "?")
+    except ImportError:
+        return "absent"
 
 
 def fail(msg: str) -> None:
@@ -1072,6 +1113,143 @@ def check_engine(engine, label: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the deployment path, one process per replica (``peer``).
+DEPLOY_N = 4
+DEPLOY_CLIENTS = 20
+DEPLOY_DEPTH = 24
+DEPLOY_REQUESTS = 2000
+# The bench's mptcp run (n = 7, f = 3): one run of this many requests
+# (the reference's default is the e2e count, 10,000).
+MPTCP_REQUESTS = 2000
+
+
+def run_deployment(bench, repo: str, device: str = "cuda:0",
+                   n_requests: int = DEPLOY_REQUESTS,
+                   n_clients: int = DEPLOY_CLIENTS) -> dict:
+    """``peer testnet`` (n = 4, NATIVE_ECDSA USIGs, 20 clients), four
+    ``peer run`` processes over TCP with their engines on cuda:0 and the
+    trace dump on, one ``peer request``, one ``peer bench`` (20 clients x
+    depth 24, 2,000 requests), then SIGTERM: every process must exit 0,
+    every replica's engine dump must show K2 and K3 batches on cuda:0
+    with no dispatch timed out, and no log may hold an ERROR record."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    d = tempfile.mkdtemp(prefix="minbft-smoke-deploy.")
+    base_port = bench._free_base_port(DEPLOY_N)
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               MINBFT_TRACE_DUMP=f"{d}/trace",
+               CONSENSUS_TIMEOUT_REQUEST="600s", CONSENSUS_TIMEOUT_PREPARE="300s",
+               CONSENSUS_TIMEOUT_VIEWCHANGE="600s")
+    peer = [sys.executable, "-m", "minbft_tpu_torch.sample.peer"]
+    on_card = device.startswith("cuda")
+    procs: list = []
+    logs: list = []
+    try:
+        baseline_mib = bench.gpu_memory_used_mib() if on_card else 0.0
+        res = subprocess.run(
+            peer + ["testnet", "-n", str(DEPLOY_N), "--usig", "NATIVE_ECDSA",
+                    "--clients", str(n_clients), "-d", d,
+                    "--base-port", str(base_port)],
+            env=env, capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f"peer testnet: rc {res.returncode}: {res.stderr[-500:]}")
+        with open(f"{d}/keys.yaml") as fh:
+            spec = yaml.safe_load(fh)["usig"]["keyspec"]
+        check(spec == "NATIVE_ECDSA", f"peer testnet: keys.yaml names {spec}")
+        common = ["--config", f"{d}/consensus.yaml", "--transport", "tcp"]
+        t0 = time.time()
+        for i in range(DEPLOY_N):
+            log = open(f"{d}/replica{i}.log", "wb")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                bench._child_cmd("-m", "minbft_tpu_torch.sample.peer",
+                                 "--keys", f"{d}/keys.replica{i}.yaml", *common,
+                                 "run", str(i), "--device", device),
+                env=env, stdout=subprocess.DEVNULL, stderr=log))
+        check(bench._wait_ports([base_port + i for i in range(DEPLOY_N)]),
+              "peer run: replicas never bound their ports")
+        start_s = time.time() - t0
+        client = ["-m", "minbft_tpu_torch.sample.peer", "--keys", f"{d}/keys.yaml", *common]
+        res = subprocess.run(bench._child_cmd(*client, "request", "--timeout", "120",
+                                              "--device", device, "smoke-deploy-op"),
+                             env=env, capture_output=True, text=True, timeout=300)
+        out = res.stdout.strip()
+        check(res.returncode == 0 and len(out) == 64
+              and all(c in "0123456789abcdef" for c in out),
+              f"peer request: rc {res.returncode}, stdout {out!r}, {res.stderr[-500:]}")
+        check(" ERROR " not in res.stderr, f"peer request logged ERROR: {res.stderr[-500:]}")
+        bench_proc = subprocess.Popen(
+            bench._child_cmd(*client, "bench", "--clients", str(n_clients),
+                             "--depth", str(DEPLOY_DEPTH), "--requests",
+                             str(n_requests), "--tag", "smoke", "--timeout", "240",
+                             "--device", device),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(bench_proc)
+        with bench.ProcessSampler([p.pid for p in procs[:DEPLOY_N]],
+                                  gpu=on_card) as sampler:
+            stdout, stderr = bench_proc.communicate(timeout=900)
+            t_end = time.time()
+        check(bench_proc.returncode == 0,
+              f"peer bench: rc {bench_proc.returncode}: {stderr[-800:]}")
+        errs = [ln for ln in stderr.splitlines() if " ERROR " in ln]
+        check(not errs, f"peer bench logged ERROR: {errs[:3]}")
+        report = json.loads(stdout.strip().splitlines()[-1])
+        check(report["committed"] == n_requests
+              and len(report["latencies_ms"]) == n_requests,
+              f"peer bench: {report['committed']} of {n_requests} committed")
+        faults = bench.engine_faults(report["engine"], device)
+        check(not faults, f"peer bench (client process): {'; '.join(faults)}")
+        cpu = sampler.cpu_per_wall(t_end - report["seconds"], t_end)
+        for p in procs[:DEPLOY_N]:
+            p.terminate()
+        for i, p in enumerate(procs[:DEPLOY_N]):
+            try:
+                rc = p.wait(timeout=bench.MP_STOP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"peer run {i}: still running {bench.MP_STOP_TIMEOUT_S} s after SIGTERM")
+            check(rc == 0, f"peer run {i}: exit code {rc} after SIGTERM")
+        launches = dict(report["engine"]["launches"])
+        dumps = []
+        for i in range(DEPLOY_N):
+            with open(f"{d}/replica{i}.log", errors="replace") as fh:
+                text = fh.read()
+            errs = [ln for ln in text.splitlines() if " ERROR " in ln]
+            check(not errs, f"peer run {i} logged ERROR: {errs[:3]}")
+            with open(f"{d}/trace.engine{i}.json") as fh:
+                doc = json.load(fh)
+            faults = bench.engine_faults(doc["engine"], device)
+            check(not faults, f"peer run {i} (engine dump): {'; '.join(faults)}")
+            for kid, v in doc["engine"]["launches"].items():
+                launches[kid] = launches.get(kid, 0) + v
+            dumps.append(doc["engine"])
+        lat = sorted(report["latencies_ms"])
+        return {
+            "requests": report["committed"], "seconds": report["seconds"],
+            "req_per_sec": report["req_per_sec"],
+            "p50_ms": _quantile(lat, 0.50), "p99_ms": _quantile(lat, 0.99),
+            "replica_cpu_per_wall": cpu, "client_cpu_per_wall": report["cpu_per_wall"],
+            # The CUDA contexts as the processes report them (each says
+            # whether it initialised CUDA) and each one's allocator MiB;
+            # the card's sandbox lists every process under one pid, so the
+            # memory they took together is the device's in use over the
+            # drive less the baseline.
+            "contexts": sum(bool(rep["cuda_context"]) for rep in dumps + [report["engine"]]),
+            "cuda_reserved_mib": [rep["cuda_reserved_mib"] for rep in dumps + [report["engine"]]],
+            "gpu_memory_mib": sampler.gpu_peak_mib - baseline_mib,
+            "start_s": start_s, "launches": launches, "engines": dumps,
+        }
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for log in logs:
+            log.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
 # Phases 2-4, 6 and 7: kernels against their plain versions.
 
 
@@ -1215,6 +1393,7 @@ def main() -> int:
         _pub_rows,
         make_test_keys,
     )
+    from minbft_tpu_torch.usig import native
     from minbft_tpu_torch.utils import hostcrypto as hc
 
     t_start = time.perf_counter()
@@ -1231,6 +1410,15 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"SMs {n_sms}, max SM clock {sm_clock_mhz:.0f} MHz")
     print(f"extension build: {build_s:.1f} s into {backend.EXTENSION.build_dir}")
+    # What the deployment path (phase 14) needs from the machine.
+    print(f"host: Python {sys.version.split()[0]}, {os.cpu_count()} CPUs; "
+          + ", ".join(f"{m} {module_version(m)}" for m in ("yaml", "grpc", "cryptography")))
+    t0 = time.perf_counter()
+    native.build()
+    print(f"native USIG: {native._cxx()} "
+          f"({subprocess.run([native._cxx(), '--version'], capture_output=True, text=True).stdout.splitlines()[0]}) "
+          f"against {native._libcrypto()}, built in {time.perf_counter() - t0:.1f} s "
+          f"into {native.build_dir()}")
     ptx = {src: ptxas_kernels(log) for src, log in backend.EXTENSION.ptxas_log.items()}
     # Every kernel instance's registers, stack frame and spills.
     names = demangle(e for kern in ptx.values() for e in kern)
@@ -1970,7 +2158,75 @@ def main() -> int:
         print(f"{path} stage shares: {json.dumps(stages)}")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14")
-    # -- phase 14 ----------------------------------------------------------------
+    # -- phase 14: the deployment path, one process per replica ------------------
+    repo = os.path.dirname(os.path.abspath(__file__))
+    dep = run_deployment(bench, repo)
+    counts = {kid: 0 for kid in wrappers}
+    counts.update({k: v for k, v in dep["launches"].items() if k in counts})
+    path_launches["testnet_tcp"] = counts
+    print(f"testnet_tcp (n={DEPLOY_N}, NATIVE_ECDSA, TCP, {DEPLOY_N} replica processes "
+          f"and one client process, engines on cuda:0): {dep['requests']} requests "
+          f"in {dep['seconds']} s, committed {dep['req_per_sec']} req/s, latency p50 "
+          f"{dep['p50_ms']} ms p99 {dep['p99_ms']} ms; replicas up in "
+          f"{dep['start_s']:.1f} s; launches {counts}")
+    print(f"testnet_tcp host CPU s per wall s: replicas {dep['replica_cpu_per_wall']}, "
+          f"client {dep['client_cpu_per_wall']}")
+    print(f"testnet_tcp CUDA contexts on the card, as the processes report them: "
+          f"{dep['contexts']} ({DEPLOY_N} replicas, 1 client process), "
+          f"{dep['gpu_memory_mib']:.0f} MiB of device memory in all (peak in use less "
+          f"the baseline), {dep['gpu_memory_mib'] / max(dep['contexts'], 1):.1f} MiB a "
+          f"process; each process's allocator MiB {dep['cuda_reserved_mib']}")
+    check(dep["contexts"] == DEPLOY_N + 1 and dep["gpu_memory_mib"] > 0,
+          f"testnet_tcp: {dep['contexts']} processes report a CUDA context, "
+          f"{dep['gpu_memory_mib']} MiB taken")
+    for i, rep in enumerate(dep["engines"]):
+        print(f"testnet_tcp replica {i} engine: verify "
+              f"{ {k: (q['items'], q['batches']) for k, q in rep['verify'].items()} } "
+              f"sign { {k: (q['items'], q['batches']) for k, q in rep['sign'].items()} } "
+              f"(items, batches); launches {rep['launches']}")
+    os.environ["MINBFT_BENCH_RUNS"] = "1"
+    os.environ["MINBFT_BENCH_MP_REQUESTS"] = str(MPTCP_REQUESTS)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["mptcp"])
+    except Exception as e:  # the bench's own failure, reported
+        fail(f"bench_mptcp: {type(e).__name__}: {e}")
+    check(rc == 0, f"bench_mptcp: exit code {rc}")
+    with open(os.path.join(bench.OUT_DIR, "extras.json")) as fh:
+        extras = json.load(fh)
+    missing = sorted(bench_expected_keys("mptcp") - set(extras))
+    check(not missing, f"bench_mptcp: keys missing {missing}")
+    check(extras["mptcp_requests"] == MPTCP_REQUESTS and extras["mptcp_n"] == 7,
+          f"bench_mptcp: {extras['mptcp_requests']} requests at n={extras['mptcp_n']}")
+    win = {kid: 0 for kid in wrappers}
+    for side in ("mptcp_replica_launches", "mptcp_client_launches"):
+        for kid, v in extras[side].items():
+            win[kid] += v
+    check(win["K2"] > 0 and win["K3"] > 0, f"bench_mptcp: launches {win}")
+    path_launches["bench_mptcp"] = win
+    print(f"bench_mptcp (n=7, f=3, TCP, 7 replica processes and one client process of "
+          f"20 clients x depth {extras['mptcp_depth']}, engines on cuda:0): "
+          f"{extras['mptcp_requests']} requests, committed "
+          f"{extras['mptcp_committed_req_per_sec']} req/s, latency p50 "
+          f"{extras['mptcp_request_latency_p50_ms']} ms p99 "
+          f"{extras['mptcp_request_latency_p99_ms']} ms; at the 500 ms SLO "
+          f"{extras['mptcp_req_per_sec_at_p50_500ms']} req/s (depth "
+          f"{extras['mptcp_slo_depth']}, p50 {extras['mptcp_slo_achieved_p50_ms']} ms); "
+          f"launches {win}")
+    print(f"bench_mptcp host CPU s per wall s: replicas "
+          f"{extras['mptcp_replica_cpu_per_wall']}, client "
+          f"{extras['mptcp_client_cpu_per_wall']}; CUDA contexts "
+          f"{extras['mptcp_cuda_contexts']} (as the processes report them), "
+          f"{extras['mptcp_gpu_memory_mib']:.0f} MiB in all, "
+          f"{extras['mptcp_context_mib']} MiB a process; each process's allocator MiB "
+          f"{extras['mptcp_cuda_reserved_mib']}")
+    check(extras["mptcp_cuda_contexts"] == 8 and extras["mptcp_gpu_memory_mib"] > 0,
+          f"bench_mptcp: {extras['mptcp_cuda_contexts']} processes report a CUDA context, "
+          f"{extras['mptcp_gpu_memory_mib']} MiB")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 15")
+    # -- phase 15 ----------------------------------------------------------------
     meta = {
         "K1": ("field_op (csrc/field.cuh, p256_field.cuh and ed25519_field.cuh libraries)",
                "minbft_tpu_torch/csrc/field.cuh", "minbft_tpu/ops/limbs.py:335"),
@@ -2004,7 +2260,9 @@ def main() -> int:
             "name": f"{kid} {name}", "route": "cuda", "source": src,
             "replaces": replaces,
             # Each count is the wrapper's own, read around each path
-            # (the flow and the three cluster phases) and summed;
+            # (the flow, the cluster phases, the bench's sections) and
+            # summed; the deployment paths' counts are the replica and
+            # client processes' own, from their engine reports.
             # launches_by_path holds the reads.  K1 and K5 are __device__
             # functions inlined into K2/K3/K7/K8 and K6, so their arithmetic
             # runs inside those launches and their test kernels (phases 2

@@ -10,6 +10,9 @@ the HMAC-SHA256 USIG path (:mod:`.ops.sha256`, :mod:`.ops.hmac_sha256`),
 their CUDA sources under ``csrc/``, the batch engine
 (:mod:`.parallel.engine`), messages, USIGs, the sample authenticator, and
 the replica core (:mod:`.core`), client (:mod:`.client`) and in-process
-transport (:mod:`.sample.conn.inprocess`).  Entry points run on
-``cuda:0`` unless the caller passes ``device="cpu"``.
+transport (:mod:`.sample.conn.inprocess`), and the deployment path: the
+TCP and gRPC transports, the native USIG (:mod:`.usig.native`), the
+keystore, and the ``peer`` CLI (:mod:`.sample.peer`), one process per
+replica.  Entry points run on ``cuda:0`` unless the caller passes
+``device="cpu"``.
 """

@@ -2,8 +2,8 @@
 
 Counterpart of the reference's ``bench.py``, with its function names, its
 output key names and its ``MINBFT_BENCH_*`` knobs wherever the reference
-has them, so each number here has a named counterpart there.  Two
-sections:
+has them, so each number here has a named counterpart there.  Three
+kinds of section:
 
 - **kernels** — batched ECDSA-P256 verifies/s (K2', the eight-array
   form; the headline, as in ``BASELINE.json``), ECDSA signs/s
@@ -20,7 +20,16 @@ sections:
   engine's batch, memo and prep keys, the ``_util_`` keys of
   :class:`~minbft_tpu_torch.obs.DeviceLedger`, and the ``_stage_`` and
   ``_critpath_`` keys of one traced run (every configuration gets one;
-  the reference traces ``e2e`` and ``cfg5`` only).
+  the reference traces ``e2e`` and ``cfg5`` only);
+- **multi-process** — ``mp`` (gRPC) and ``mptcp`` (TCP, depth 48 by
+  ``MINBFT_BENCH_MPTCP_DEPTH``), the reference's ``_bench_mp_cluster``:
+  n = 7, f = 3, one ``peer run`` process per replica and the 20 clients
+  in one ``peer bench`` process, ``MINBFT_BENCH_MP_REQUESTS`` requests
+  (default the e2e count), each process with its own engine on the
+  device (the reference runs them ``--no-batch`` on the CPU), with the
+  reference's ``{prefix}_*`` keys plus each replica's host CPU seconds
+  per wall second, the kernel launches and, on the card, the CUDA
+  contexts and their memory.
 
 Every timing ends in ``torch.cuda.synchronize()`` (on the card) before
 the clock stops.  Each ``*_compile_s`` key is the first call's time: on
@@ -39,8 +48,7 @@ one ``{"bench_extras": {...}}`` line of the headline-grade keys, then the
 headline line ``{"metric": "batched ECDSA-P256 verifies/sec/chip", ...}``
 stamped with the backend, the device and its power limit.
 
-Left out (ROADMAP.md queue 1, each with the module it waits for): the
-multi-process ``mp``/``mptcp`` runs (TCP/gRPC conns, ``sample/peer``),
+Left out (ROADMAP.md queue 1, each with the module it waits for):
 ``_bench_readonly``, ``bench_groups``, ``bench_load``,
 ``bench_groups_chips`` and ``bench_recovery`` (groups, loadgen, testing,
 recovery soak), and ``use_mesh`` (multi-GPU); ``bench_ingest_sweep``
@@ -75,6 +83,8 @@ import numpy as np
 import torch
 
 from .ops import backend, limbs
+from .utils.netports import free_base_port as _free_base_port
+from .utils.netports import wait_ports as _wait_ports
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_bench")
@@ -91,8 +101,11 @@ CFG4_BUCKET = 128
 
 SECTIONS = (
     "kernels", "e2e", "nodedup", "nodedupref", "cfg1", "cfg2", "cfg4", "mac",
-    "cfg5", "iso",
+    "cfg5", "iso", "mp", "mptcp",
 )
+# The in-process configurations past e2e, and the multi-process runs.
+CONFIG_SECTIONS = SECTIONS[4:10]
+MP_SECTIONS = ("mp", "mptcp")
 # Per-request deadline of the cluster drives (the reference's).
 REQUEST_TIMEOUT_S = 240.0
 # Timed full-bucket dispatches of the ledger's ceiling probe.
@@ -837,6 +850,379 @@ def _trace_tables(replicas, clients, engines, prefix: str) -> dict:
 # Entry point.
 
 
+# -- multi-process clusters (the reference's mp / mptcp runs) -------------
+
+# Orphan protection: a timed-out or killed bench parent must not leave a
+# cluster of replica and client processes running on the host and the
+# card.  Each child is launched through a small -c bootstrap that sets
+# PR_SET_PDEATHSIG=SIGKILL and then execs the real module (pdeathsig
+# survives execve; no preexec_fn in a threaded parent).
+_PDEATH_BOOTSTRAP = (
+    "import ctypes,os,sys;"
+    "ctypes.CDLL('libc.so.6',use_errno=True).prctl(1,9);"
+    "os.execv(sys.executable,[sys.executable]+sys.argv[1:])"
+)
+# Seconds a replica may take to exit after SIGTERM (its engine's last
+# dispatch, its dumps) before the bench fails it.
+MP_STOP_TIMEOUT_S = 60.0
+
+
+def _child_cmd(*module_args) -> list:
+    """python -c <pdeathsig bootstrap> <module_args...> — the child kills
+    itself when this process dies."""
+    return [sys.executable, "-c", _PDEATH_BOOTSTRAP, *module_args]
+
+
+def _proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of a live process (Linux /proc)."""
+    with open(f"/proc/{pid}/stat") as fh:
+        fields = fh.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def gpu_memory_used_mib() -> float:
+    """Device memory in use on card 0, every process's context and
+    allocations together (``nvidia-smi --query-gpu=memory.used``).  The
+    per-process reading (``--query-compute-apps``) is no use here: the
+    card's sandbox reports every process under one pid."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return float(out.strip().splitlines()[0])
+
+
+class ProcessSampler:
+    """Samples the CPU seconds of a set of processes (every ``period``
+    seconds, on a thread) and, with ``gpu``, the peak device memory in use
+    (``gpu_memory_used_mib``, every other sample); :meth:`cpu_per_wall`
+    reads each process's CPU seconds per wall second over a window from
+    the nearest samples around it (one is taken as the sampler starts and
+    one as it stops)."""
+
+    def __init__(self, pids, period: float = 0.5, gpu: bool = False):
+        import threading
+
+        self.pids = list(pids)
+        self.period = period
+        self.gpu = gpu
+        self.samples: list = []  # (time.time(), {pid: cpu_s})
+        self.gpu_peak_mib = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        self._sample()
+
+    def _sample(self) -> None:
+        now = time.time()
+        cpu = {}
+        for pid in self.pids:
+            try:
+                cpu[pid] = _proc_cpu_s(pid)
+            except (OSError, IndexError, ValueError):
+                pass  # the process has exited
+        self.samples.append((now, cpu))
+
+    def _loop(self) -> None:
+        k = 0
+        while not self._stop.is_set():
+            self._sample()
+            if self.gpu and k % 2 == 0:
+                self.gpu_peak_mib = max(self.gpu_peak_mib, gpu_memory_used_mib())
+            k += 1
+            self._stop.wait(self.period)
+
+    def cpu_per_wall(self, t0: float, t1: float) -> list:
+        before = [s for s in self.samples if s[0] <= t0] or self.samples[:1]
+        after = [s for s in self.samples if s[0] >= t1] or self.samples[-1:]
+        (ta, a), (tb, b) = before[-1], after[0]
+        if tb <= ta:
+            raise BenchError(f"no CPU samples around the window {t0}..{t1}")
+        return [round((b[p] - a[p]) / (tb - ta), 3) for p in self.pids
+                if p in a and p in b]
+
+
+def _read_replica_engine(log_path: str) -> "dict | None":
+    """The engine report a replica prints at a clean shutdown."""
+    with open(log_path, errors="replace") as fh:
+        for line in fh:
+            if " engine {" in line and line.startswith("replica "):
+                return json.loads(line.split(" engine ", 1)[1])
+    return None
+
+
+def _error_lines(log_path: str, limit: int) -> list:
+    """The ERROR records in the first ``limit`` bytes of a log."""
+    with open(log_path, "rb") as fh:
+        text = fh.read(limit).decode(errors="replace")
+    return [ln.rstrip() for ln in text.splitlines() if " ERROR " in ln]
+
+
+def engine_faults(rep: dict, device: str) -> list:
+    """What is wrong with a process's engine report (``peer`` CLI
+    ``engine_report``): an engine off ``device``, on the card a K2 or K3
+    that never launched (the plain versions count no launch), no ECDSA
+    verify or sign batch, a dispatch that timed out, a lane signed on the
+    host.  Empty when the process ran the path on its engine."""
+    faults = []
+    if rep["device"] != device:
+        faults.append(f"engine on {rep['device']}, not {device}")
+    if device.startswith("cuda") and not all(rep["launches"][k] for k in ("K2", "K3")):
+        faults.append(f"a kernel of the path was not launched: {rep['launches']}")
+    if not (rep["verify"].get("ecdsa_p256", {}).get("batches", 0)
+            and rep["sign"].get("ecdsa_p256", {}).get("batches", 0)):
+        faults.append("no ECDSA verify or sign batch")
+    timeouts = sum(q["dispatch_timeouts"] for side in ("verify", "sign")
+                   for q in rep[side].values())
+    if timeouts:
+        faults.append(f"{timeouts} dispatches timed out")
+    if any(q.get("host_fallback_items", 0) for q in rep["sign"].values()):
+        faults.append(f"host-signed lanes: {rep['sign']}")
+    return faults
+
+
+def launch_totals(reports: list) -> dict:
+    """K2, K3 and K6 launches summed over processes' engine reports."""
+    return {kid: sum(rep["launches"][kid] for rep in reports)
+            for kid in ("K2", "K3", "K6")}
+
+
+def _bench_mp_cluster(
+    n: int,
+    f: int,
+    n_requests: int,
+    device: str,
+    n_client_procs: int = 1,
+    clients_per_proc: int = 20,
+    depth: int = 32,
+    prefix: str = "mp",
+    run_tag: str = "r",
+    transport: str = "grpc",
+) -> dict:
+    """Committed-request throughput through a multi-process cluster: one
+    OS process per replica (``peer run``) over gRPC or TCP sockets, the
+    clients in their own processes (``peer bench``) — the reference's
+    deployment shape (reference sample/peer/main.go + cmd/run.go:91-159).
+
+    Every replica and client process owns an engine on ``device`` (on the
+    card, its own CUDA context): K2 checks its signatures and ECDSA USIG
+    certificates, K3 makes its REQUEST/REPLY signatures.  The run fails
+    on a client process that fails, a replica that logs an ERROR record
+    before it is stopped, a replica that does not exit 0 within
+    MP_STOP_TIMEOUT_S of SIGTERM, or an engine report with a fault
+    (``engine_faults``).  Besides the reference's keys it reports each
+    replica's host CPU seconds per wall second over the clients' drive,
+    the kernel launches of the replicas and clients and, on the card, the
+    CUDA contexts the processes opened (each reports whether it did), the
+    MiB each one's PyTorch allocator held, and the device memory they
+    took together."""
+    import shutil
+    import tempfile
+
+    repo = os.path.dirname(_PKG_DIR)
+    d = tempfile.mkdtemp(prefix="minbft-torch-mp-bench.")
+    base_port = _free_base_port(n)
+    env = dict(
+        os.environ,
+        PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+        # Steady-state measurement: protocol timeouts sit above the
+        # per-request deadline so a transient stall fails the request,
+        # not the whole run via a view-change cascade.
+        CONSENSUS_TIMEOUT_REQUEST="600s",
+        CONSENSUS_TIMEOUT_PREPARE="300s",
+        CONSENSUS_TIMEOUT_VIEWCHANGE="600s",
+        # Request batching at the in-process configurations' setting.
+        CONSENSUS_BATCHSIZE_PREPARE=os.environ.get(
+            "MINBFT_BENCH_MP_BATCHSIZE", "256"
+        ),
+    )
+    peer = ["-m", "minbft_tpu_torch.sample.peer", "--keys", f"{d}/keys.yaml",
+            "--config", f"{d}/consensus.yaml", "--transport", transport]
+    n_clients = n_client_procs * clients_per_proc
+    on_card = device.startswith("cuda")
+    replicas: list = []
+    client_procs: list = []
+    logs: list = []
+    try:
+        # Device memory in use before any process of the run starts (the
+        # measuring process's own context included, if it has one).
+        baseline_mib = gpu_memory_used_mib() if on_card else 0.0
+        scaffold = subprocess.run(
+            [sys.executable, "-m", "minbft_tpu_torch.sample.peer", "testnet",
+             "-n", str(n), "-f", str(f), "-d", d,
+             "--base-port", str(base_port), "--clients", str(n_clients),
+             "--usig", "auto"],
+            env=env, capture_output=True, text=True, timeout=300,
+        )
+        if scaffold.returncode != 0:
+            raise BenchError(f"mp scaffold failed: {scaffold.stderr[-500:]}")
+        for i in range(n):
+            log = open(f"{d}/replica{i}.log", "wb")
+            logs.append(log)
+            replicas.append(subprocess.Popen(
+                _child_cmd(*peer, "run", str(i), "--device", device),
+                env=env, stdout=subprocess.DEVNULL, stderr=log,
+            ))
+        if not _wait_ports([base_port + i for i in range(n)]):
+            raise BenchError("mp replicas never bound their ports")
+
+        per_proc = n_requests // n_client_procs
+        for p in range(n_client_procs):
+            client_procs.append(subprocess.Popen(
+                _child_cmd(
+                    *peer, "bench",
+                    "--clients", str(clients_per_proc),
+                    "--client-base", str(p * clients_per_proc),
+                    "--requests", str(per_proc),
+                    "--depth", str(depth),
+                    "--tag", f"{run_tag}p{p}",
+                    "--timeout", str(int(REQUEST_TIMEOUT_S)),
+                    "--device", device,
+                ),
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            ))
+        reports = []
+        with ProcessSampler([r.pid for r in replicas], gpu=on_card) as sampler:
+            for p in client_procs:
+                stdout, stderr = p.communicate(timeout=1200)
+                if p.returncode != 0:
+                    raise BenchError(f"mp client proc failed: {stderr[-500:]}")
+                errs = [ln for ln in stderr.splitlines() if " ERROR " in ln]
+                if errs:
+                    raise BenchError(f"mp client proc logged ERROR: {errs[:3]}")
+                reports.append(json.loads(stdout.strip().splitlines()[-1]))
+            t_end = time.time()
+        # The drive window of the longest-running client process.
+        t_start = t_end - max(r["seconds"] for r in reports)
+        cpu = sampler.cpu_per_wall(t_start, t_end)
+
+        # Clean stop: every replica must exit 0 on SIGTERM.  What a
+        # replica logs from here on is shutdown (over gRPC the survivors
+        # log each stopped peer's failed stream at ERROR, as the
+        # reference's core does), so the ERROR check reads each log only
+        # up to this point.
+        served = [os.path.getsize(f"{d}/replica{i}.log") for i in range(n)]
+        for r in replicas:
+            r.terminate()
+        for i, r in enumerate(replicas):
+            try:
+                rc = r.wait(timeout=MP_STOP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise BenchError(
+                    f"mp replica {i} still running {MP_STOP_TIMEOUT_S} s after SIGTERM"
+                ) from None
+            if rc != 0:
+                raise BenchError(f"mp replica {i} exited {rc} after SIGTERM")
+        engines = []
+        for i in range(n):
+            path = f"{d}/replica{i}.log"
+            errs = _error_lines(path, served[i])
+            if errs:
+                raise BenchError(f"mp replica {i} logged ERROR: {errs[:3]}")
+            rep = _read_replica_engine(path)
+            if rep is None:
+                raise BenchError(f"mp replica {i} printed no engine report")
+            engines.append((f"replica {i}", rep))
+        engines += [(f"client proc {p}", r["engine"]) for p, r in enumerate(reports)]
+        for who, rep in engines:
+            faults = engine_faults(rep, device)
+            if faults:
+                raise BenchError(f"mp {who}: {'; '.join(faults)}")
+
+        committed = sum(r["committed"] for r in reports)
+        # The procs drive concurrently (launched within ~1s); the longest
+        # proc clock bounds the concurrent window without counting the
+        # interpreters' startup.
+        wall = max(r["seconds"] for r in reports)
+        lat = np.asarray(sorted(v for r in reports for v in r["latencies_ms"]))
+        out = {
+            f"{prefix}_n": n,
+            f"{prefix}_f": f,
+            f"{prefix}_requests": committed,
+            f"{prefix}_clients": n_clients,
+            f"{prefix}_client_procs": n_client_procs,
+            f"{prefix}_depth": depth,
+            f"{prefix}_committed_req_per_sec": round(committed / wall, 1),
+            f"{prefix}_request_latency_p50_ms": round(float(np.percentile(lat, 50)), 2),
+            f"{prefix}_request_latency_p99_ms": round(float(np.percentile(lat, 99)), 2),
+            f"{prefix}_replica_cpu_per_wall": cpu,
+            f"{prefix}_client_cpu_per_wall": [r["cpu_per_wall"] for r in reports],
+            f"{prefix}_replica_launches": launch_totals([rep for _, rep in engines[:n]]),
+            f"{prefix}_client_launches": launch_totals([rep for _, rep in engines[n:]]),
+        }
+        if on_card:
+            # The contexts are counted from the processes' own reports
+            # (each says whether it initialised CUDA); the card's sandbox
+            # lists every process under one pid, so the memory they took
+            # together is the device's peak in use over the drive less
+            # the baseline, and beside it each process's allocator holding.
+            contexts = sum(bool(rep["cuda_context"]) for _, rep in engines)
+            run_mib = sampler.gpu_peak_mib - baseline_mib
+            out[f"{prefix}_cuda_contexts"] = contexts
+            out[f"{prefix}_cuda_reserved_mib"] = [rep["cuda_reserved_mib"]
+                                                  for _, rep in engines]
+            out[f"{prefix}_gpu_memory_mib"] = run_mib
+            out[f"{prefix}_context_mib"] = round(run_mib / max(contexts, 1), 1)
+        return out
+    finally:
+        # Client procs FIRST (a failed run must not leave them
+        # retransmitting into the next run's measurement window), then
+        # replicas.
+        for p in client_procs + replicas:
+            if p.poll() is None:
+                p.kill()
+        for p in client_procs + replicas:
+            p.wait(timeout=30)
+        for log in logs:
+            log.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _bench_mp_repeated(n, f, n_requests, prefix="mp", depth=None, **kw) -> dict:
+    """Mean ± stddev over MINBFT_BENCH_RUNS multi-process runs, then one
+    latency-bounded run: depth re-tuned by Little's law to the 500 ms p50
+    target (MINBFT_BENCH_SLO_P50_MS), reported as
+    ``*_req_per_sec_at_p50_500ms``, unless MINBFT_BENCH_SKIP_SLO.  Any
+    failed run fails the section (the reference logs it and goes on)."""
+    runs = int(os.environ.get("MINBFT_BENCH_RUNS", "3"))
+    if depth is None:
+        depth = int(os.environ.get("MINBFT_BENCH_MP_DEPTH", "32"))
+    out: dict = {}
+    vals = []
+    for i in range(max(runs, 1)):
+        out = _bench_mp_cluster(n, f, n_requests, depth=depth, prefix=prefix,
+                                run_tag=f"r{i}", **kw)
+        vals.append(out[f"{prefix}_committed_req_per_sec"])
+    out[f"{prefix}_req_per_sec_runs"] = vals
+    out[f"{prefix}_committed_req_per_sec"] = round(statistics.mean(vals), 1)
+    out[f"{prefix}_req_per_sec_mean"] = out[f"{prefix}_committed_req_per_sec"]
+    out[f"{prefix}_req_per_sec_stddev"] = (
+        round(statistics.stdev(vals), 1) if len(vals) > 1 else 0.0
+    )
+    if os.environ.get("MINBFT_BENCH_SKIP_SLO"):
+        return out
+    target = float(os.environ.get("MINBFT_BENCH_SLO_P50_MS", "500"))
+    p50 = out[f"{prefix}_request_latency_p50_ms"]
+    slo_depth = max(1, min(depth, round(depth * target / max(p50, 1.0))))
+    slo = _bench_mp_cluster(n, f, max(n_requests // 4, 1000), depth=slo_depth,
+                            prefix="slo", run_tag="slo", **kw)
+    out[f"{prefix}_req_per_sec_at_p50_{int(target)}ms"] = slo[
+        "slo_committed_req_per_sec"
+    ]
+    out[f"{prefix}_slo_depth"] = slo_depth
+    out[f"{prefix}_slo_achieved_p50_ms"] = slo["slo_request_latency_p50_ms"]
+    out[f"{prefix}_slo_achieved_p99_ms"] = slo["slo_request_latency_p99_ms"]
+    return out
+
+
 def _device_stamp(dev: torch.device) -> dict:
     if dev.type != "cuda":
         return {"backend": "cpu", "device": "cpu", "power_limit": None}
@@ -903,8 +1289,13 @@ def main(argv=None) -> int:
             want.add("e2e")
         if all_configs and not skip("NODEDUP"):
             want |= {"nodedup", "nodedupref"}
+        # The multi-process runs join the default run on the card only:
+        # on the CPU each of their eight processes would run the plain
+        # versions (seconds per dispatch); named, they run there too.
+        if not on_cpu and not skip("MP"):
+            want |= set(MP_SECTIONS)
         if all_configs and not skip("CONFIGS"):
-            want |= set(SECTIONS[4:])
+            want |= set(CONFIG_SECTIONS)
     produced: dict = {}
 
     def section(name, fn):
@@ -937,6 +1328,18 @@ def main(argv=None) -> int:
         return out
 
     section("kernels", kernels)
+    # The reference's deployment shape: n = 7, f = 3, one process per
+    # replica, the clients in one process of their own, every process with
+    # its engine on the card; over gRPC (mp) and the native TCP framing
+    # (mptcp, depth MINBFT_BENCH_MPTCP_DEPTH).  The reference caps the
+    # run at 400 requests on the CPU.
+    mp_requests = _env_int("MINBFT_BENCH_MP_REQUESTS", n_requests)
+    if on_cpu:
+        mp_requests = min(mp_requests, 400)
+    section("mp", lambda: _bench_mp_repeated(7, 3, mp_requests, device=str(dev)))
+    section("mptcp", lambda: _bench_mp_repeated(
+        7, 3, mp_requests, prefix="mptcp", transport="tcp",
+        depth=_env_int("MINBFT_BENCH_MPTCP_DEPTH", 48), device=str(dev)))
     # BASELINE config 3: n = 7, f = 3, ECDSA-P256, 10k requests.
     cluster("e2e", 7, 3, n_requests, n_clients=n_clients, usig_kind="ecdsa",
             warm_run=True)
@@ -978,6 +1381,8 @@ def main(argv=None) -> int:
         "_critpath_", "mean_batch", "logical_verifies", "memo_hits",
         "prep_share", "prep_speedup", "prep_items_per_sec", "backend", "device",
         "power_limit", "_util_", "queue_depth_peak", "dispatch_timeouts",
+        "cpu_per_wall", "cuda_contexts", "cuda_reserved_mib", "context_mib",
+        "gpu_memory_mib", "_launches",
     )
     compact = {k: extras[k] for k in sorted(extras) if any(p in k for p in keep)}
     print(json.dumps({"bench_extras": compact}))

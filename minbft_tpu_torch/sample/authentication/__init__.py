@@ -5,14 +5,16 @@
 own-key signing through the GPU
 :class:`minbft_tpu_torch.parallel.BatchVerifier`;
 :class:`~.mac.MacAuthenticator` is the pairwise-MAC scheme, its MAC checks
-in the engine's HMAC queue.  The keystore and keytool come with a later
-slice."""
+in the engine's HMAC queue.  :class:`~.keystore.KeyStore` is the
+keys.yaml (read and written in the reference's layout), and
+:func:`~.keystore.generate_testnet_keys` scaffolds a testnet's keys."""
 
 from .authenticator import (
     SampleAuthenticator,
     authenticators_from_keys,
     new_test_authenticators,
 )
+from .keystore import KeyStore, KeyStoreError, generate_testnet_keys
 from .mac import (
     MacAuthenticator,
     MacKeys,
@@ -30,4 +32,7 @@ __all__ = [
     "mac_keys_from",
     "new_test_authenticators",
     "new_test_mac_authenticators",
+    "KeyStore",
+    "KeyStoreError",
+    "generate_testnet_keys",
 ]

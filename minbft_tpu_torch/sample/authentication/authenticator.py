@@ -1,13 +1,13 @@
 """The sample Authenticator: role → scheme dispatch with GPU batch verify.
 
-Port of :mod:`minbft_tpu.sample.authentication.authenticator` for the
-``ecdsa-p256`` and ``ed25519`` schemes.  Every ``verify`` call becomes an
+Port of :mod:`minbft_tpu.sample.authentication.authenticator`.  For the
+``ecdsa-p256`` and ``ed25519`` schemes every ``verify`` call becomes an
 awaitable lane of the :class:`minbft_tpu_torch.parallel.BatchVerifier`
 (K2 or K7 on the card), and own CLIENT/REPLICA signatures go through the
 engine's sign queue (K3 or K8).  USIG certificates are checked in the
 engine too: ECDSA ones by K2, HMAC-SHA256 ones by K6.  The wider NIST
-host curves, the keystore, keytool and MAC authenticator come with later
-slices.
+curves (``ecdsa-p384``, ``ecdsa-p521``) run on the host, as in the
+reference: no kernel computes them.
 
 Scheme wire formats (canonical, byte-identical to the reference):
 
@@ -145,7 +145,34 @@ class Ed25519Scheme(SigScheme):
         return await engine.verify_ed25519_many(lanes) if lanes else []
 
 
-SCHEMES = {s.name: s for s in (EcdsaScheme(), Ed25519Scheme())}
+class NistEcdsaScheme(SigScheme):
+    """The wider NIST curves (P-384, P-521), on the host only, as in the
+    reference (reference keymanager.go:169-241 accepts P-224..P-521 keys):
+    no kernel computes them, so with or without an engine a tag is signed
+    and checked inline by ``hostcrypto`` (OpenSSL where the
+    ``cryptography`` package is present).  The engine's verify and sign
+    queues never see them."""
+
+    def __init__(self, curve: str):
+        self.name = f"ecdsa-{curve}"
+        self._curve = curve
+
+    def sign(self, priv: bytes, msg: bytes) -> bytes:
+        return hc.nist_sign(self._curve, priv, msg)
+
+    async def verify(self, pub: bytes, msg: bytes, tag: bytes, engine) -> bool:
+        return hc.nist_verify(self._curve, pub, msg, tag)
+
+
+SCHEMES = {
+    s.name: s
+    for s in (
+        EcdsaScheme(),
+        Ed25519Scheme(),
+        NistEcdsaScheme("p384"),
+        NistEcdsaScheme("p521"),
+    )
+}
 
 
 def _scheme(name: str) -> SigScheme:
@@ -603,6 +630,11 @@ def _scheme_keys(scheme: str, count: int, rng) -> Tuple[list, np.ndarray]:
     if scheme == "ecdsa-p256":
         pairs = [hc.keygen(rng) for _ in range(count)]
         return [d for d, _ in pairs], _pub_rows([q for _, q in pairs])
+    if scheme != "ed25519":
+        raise ValueError(
+            f"no key-dict layout for {scheme!r}: the keystore carries the "
+            "NIST curves (generate_testnet_keys)"
+        )
     seeds = [rng.randbelow(1 << 256).to_bytes(32, "big") for _ in range(count)]
     pubs = [hc.ed25519_keygen(seed)[1] for seed in seeds]
     return seeds, np.frombuffer(b"".join(pubs), np.uint8).reshape(count, 32).copy()

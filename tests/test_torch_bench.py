@@ -222,3 +222,52 @@ def test_nodedup_run_turns_the_engine_memo_off():
     assert out["nodedup_requests"] == 4 and out["nodedup_dispatch_timeouts"] == 0
     assert out["nodedup_memo_hits"] == 0 and out["nodedup_util_lanes_memo"] == 0
     assert out["nodedup_logical_verifies"] == out["nodedup_batched_verifies"] > 0
+
+
+def test_mp_error_check_reads_a_replica_log_up_to_the_stop(tmp_path):
+    """The multi-process runs fail on an ERROR record a replica logs while
+    it serves, not on one it logs after SIGTERM (over gRPC the survivors
+    log each stopped peer's failed stream at ERROR)."""
+    log = tmp_path / "replica0.log"
+    served = b"2026-01-01 00:00:00 minbft.replica0 INFO serving\n"
+    log.write_bytes(served + b"2026-01-01 00:00:01 minbft.replica0 ERROR peer 1 failed\n")
+    assert bench._error_lines(str(log), len(served)) == []
+    assert bench._error_lines(str(log), log.stat().st_size) == [
+        "2026-01-01 00:00:01 minbft.replica0 ERROR peer 1 failed"]
+
+
+def _engine_report(device="cuda:0", launches=1, timeouts=0, host_signed=0):
+    return {
+        "device": device, "cuda_context": device.startswith("cuda"),
+        "cuda_reserved_mib": 0.0,
+        "launches": {"K2": launches, "K3": launches, "K6": 0, "K7": 0, "K8": 0},
+        "verify": {"ecdsa_p256": {"items": 4, "batches": 2, "dispatch_timeouts": timeouts}},
+        "sign": {"ecdsa_p256": {"items": 2, "batches": 1, "dispatch_timeouts": 0,
+                                "host_fallback_items": host_signed}},
+    }
+
+
+@pytest.mark.parametrize("report, device, fault", [
+    (_engine_report(), "cuda:0", None),
+    (_engine_report("cpu", launches=0), "cpu", None),
+    (_engine_report("cpu"), "cuda:0", "engine on cpu"),
+    (_engine_report(launches=0), "cuda:0", "not launched"),
+    (_engine_report(timeouts=2), "cuda:0", "2 dispatches timed out"),
+    (_engine_report("cpu", launches=0, host_signed=3), "cpu", "host-signed"),
+    ({**_engine_report(), "sign": {}}, "cuda:0", "no ECDSA verify or sign batch"),
+])
+def test_engine_faults_of_a_process_report(report, device, fault):
+    """A process's engine report is held to its device: on the card K2
+    and K3 launched (the plain versions on the CPU count none), ECDSA
+    batches on both sides, no dispatch timed out, no lane host-signed."""
+    faults = bench.engine_faults(report, device)
+    if fault is None:
+        assert faults == []
+    else:
+        assert len(faults) == 1 and fault in faults[0]
+
+
+def test_launch_totals_sum_every_kernel_over_the_processes():
+    reports = [_engine_report(launches=2), _engine_report(launches=3)]
+    reports[1]["launches"]["K6"] = 4
+    assert bench.launch_totals(reports) == {"K2": 5, "K3": 5, "K6": 4}
