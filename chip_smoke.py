@@ -101,11 +101,16 @@ that does not hold:
    the kernel section at its default batches (32,768), then the ``mac``
    (n = 7, 8,000 requests) and ``cfg4`` (n = 13, bucket 128, 3,000
    requests) cluster configurations, one timed run each plus the traced
-   and SLO runs; each must exit 0 with every self-check passed, write
+   and SLO runs, the ``ingest`` sweep (n = 4, HMAC USIGs, bucket 128,
+   600 requests asked, 592 of them driven in 16 equal shares, at each of
+   ``ingest_off``, ``ingest8``, ``ingest64`` and ``ingest1024``) and
+   ``readonly`` (4,000 fast reads from 16 clients, host crypto); each
+   must exit 0 with every self-check passed, write
    ``build/torch_bench/extras.json`` with the reference's keys for what
    it ran, commit every request with no dispatch timed out and no
    host-signed lane, log no ERROR record, and launch its path's kernels
-   in its window (K6 for ``mac``);
+   in its window (K6 for ``mac``; K2, K3 and K6 for ``cfg4`` and
+   ``ingest``; none for ``readonly``);
 14. the deployment path, one process per replica, through the ``peer``
    entry point (``python -m minbft_tpu_torch.sample.peer``) as a user
    runs it: ``testnet`` (n = 4, f = 1, NATIVE_ECDSA USIGs from the native
@@ -125,7 +130,22 @@ that does not hold:
    a CUDA context of its own; it prints req/s, latency p50/p99, each
    replica's host CPU seconds per wall second, the contexts, each
    process's allocator MiB and the device memory they took together;
-15. one JSON line of per-kernel numbers (launches, parity, times, bounds).
+15. the deployment path under chaos, with its metrics endpoint: ``peer
+   selftest --chaos-seed`` (in-process, host crypto) once, then ``testnet``
+   (n = 4, NATIVE_ECDSA), four ``run`` processes over TCP with
+   ``--metrics-port 0``, ``MINBFT_CHAOS_SEED`` pinned and
+   ``MINBFT_CHAOS_PLAN=lossy``, engines on cuda:0, the reference's chaos
+   timeouts (request 60 s, prepare 30 s), one ``bench`` of 20 x 24, 1,000
+   requests; then ``metrics`` (every target, merged), ``top --once`` and
+   ``slo --json`` on the live replicas, and SIGTERM, in a budget of 150
+   s.  Every request must commit, every process exit 0, every replica's
+   scraped engine families show verify and sign items, no scraped queue
+   count exceed the replica's engine report at SIGTERM, and each
+   replica's scraped fault census be non-zero and equal
+   ``FaultNet.replay_counts`` of the seed over the scrape's per-link
+   frames; it prints req/s and p50/p99 beside phase 14's clean testnet,
+   each census and the scraped engine rows;
+16. one JSON line of per-kernel numbers (launches, parity, times, bounds).
 
 Each phase's start is printed with the seconds since the smoke began.
 Kernel times are CUDA-event medians: ``ms`` brackets one wrapper call
@@ -253,8 +273,15 @@ REQUEST_TIMEOUT_S = 120.0
 # at its default batches, and two cluster configurations at the bench's
 # default lengths, one timed run each); the other configurations' paths
 # are clusters A-C's.
-BENCH_SECTIONS = ("kernels", "mac", "cfg4")
+BENCH_SECTIONS = ("kernels", "mac", "cfg4", "ingest", "readonly")
 BENCH_REQUESTS = {"mac": 8000, "cfg4": 3000}
+# The ingest sweep's points and requests a point, the read-only section's
+# reads and clients (the reference's defaults off the CPU).
+INGEST_PREFIXES = ("ingest_off", "ingest8", "ingest64", "ingest1024")
+INGEST_REQUESTS = 600
+# Each of the sweep's 16 clients drives an equal share: 37 of the 600.
+INGEST_COMMITTED = INGEST_REQUESTS // 16 * 16
+RO_READS, RO_CLIENTS = 4000, 16
 
 
 def bench_expected_keys(section: str) -> set:
@@ -275,6 +302,15 @@ def bench_expected_keys(section: str) -> set:
                      f"{s}_device_signs_per_sec", f"{s}_sign_queue_mean_batch",
                      f"{s}_sign_queue_compile_s", f"{s}_sign_queue_fallback"}
         return keys
+    if section == "readonly":
+        return {"ro_reads", "ro_clients", "ro_reads_per_sec", "ro_fast_replies"}
+    if section == "ingest":
+        # One _bench_cluster run a point: no repeat, traced or SLO keys.
+        once = {s.split("_", 1)[1] for s in bench_expected_keys("e2e")} - {
+            "req_per_sec_runs", "req_per_sec_mean", "req_per_sec_stddev",
+            "req_per_sec_at_p50_500ms", "slo_depth", "slo_achieved_p50_ms",
+            "slo_achieved_p99_ms"}
+        return {f"{p}_{s}" for p in INGEST_PREFIXES for s in once}
     if section in ("mp", "mptcp"):
         # _bench_mp_cluster's keys and _bench_mp_repeated's.
         suffixes = {
@@ -1123,108 +1159,297 @@ DEPLOY_REQUESTS = 2000
 MPTCP_REQUESTS = 2000
 
 
-def run_deployment(bench, repo: str, device: str = "cuda:0",
+# Phase 15: the same path under chaos, with the metrics endpoint.
+CHAOS_REQUESTS = 1000
+# The pinned replay token of the fault schedule (a public seed, not key
+# material) and the plan every replica's outbound links run.
+CHAOS_SEED = 0x5EED15
+CHAOS_PLAN = "lossy"
+# Each run's own budget: the scaffold, the drive, the scrapes and the stop.
+DEPLOY_BUDGET_S = 900.0
+CHAOS_BUDGET_S = 150.0
+# Phase 14's timeouts keep a slow first batch from turning into a view
+# change; the reference's chaos-run timeouts (testing/recovery_soak.py)
+# let a frame the plan drops be retransmitted, or its request time out
+# into a view change, inside the chaos budget.
+DEPLOY_TIMEOUTS = {"CONSENSUS_TIMEOUT_REQUEST": "600s",
+                   "CONSENSUS_TIMEOUT_PREPARE": "300s",
+                   "CONSENSUS_TIMEOUT_VIEWCHANGE": "600s"}
+CHAOS_TIMEOUTS = {"CONSENSUS_TIMEOUT_REQUEST": "60s",
+                  "CONSENSUS_TIMEOUT_PREPARE": "30s"}
+
+
+def metrics_port(log_path: str, timeout: float) -> int:
+    """The port a ``peer run --metrics-port 0`` replica announced on its
+    stderr log (the reference's recovery soak reads it the same way)."""
+    import re
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        with open(log_path, "rb") as fh:
+            m = re.search(rb"metrics on http://[^:]+:(\d+)/metrics", fh.read())
+        if m:
+            return int(m.group(1))
+        time.sleep(0.2)
+    fail(f"{log_path}: no metrics endpoint announced in {timeout:.0f} s")
+
+
+def census_from_scrape(fams: dict) -> dict:
+    """(seeded counts, per-link frames) from the faultnet families of one
+    scrape (the reference's ``recovery_soak._census_from_scrape``)."""
+    from minbft_tpu_torch.testing.faultnet import SEEDED_KINDS
+
+    seeded = {k: 0 for k in SEEDED_KINDS}
+    fam = fams.get("minbft_faultnet_injected_total")
+    for key, v in (fam["samples"] if fam else {}).items():
+        kind = dict(key).get("kind")
+        if kind in seeded:
+            seeded[kind] = int(v)
+    frames: dict = {}
+    fam = fams.get("minbft_faultnet_frames_total")
+    for key, v in (fam["samples"] if fam else {}).items():
+        src, _, dst = dict(key).get("link", "").partition(">")
+        if src and dst:
+            frames[(src, dst)] = int(v)
+    return {"seeded": seeded, "frames": frames}
+
+
+def engine_rows(fams: dict) -> dict:
+    """{side: {queue: (items, batches)}} from the ``minbft_engine``
+    families of one scrape (``minbft_{verify,sign}_queue_*_total``)."""
+    rows: dict = {}
+    for side in ("verify", "sign"):
+        for field in ("items", "batches"):
+            fam = fams.get(f"minbft_{side}_queue_{field}_total")
+            for key, v in (fam["samples"] if fam else {}).items():
+                q = rows.setdefault(side, {}).setdefault(dict(key)["queue"], [0, 0])
+                q[0 if field == "items" else 1] = int(v)
+    return {side: {q: tuple(v) for q, v in qs.items()} for side, qs in rows.items()}
+
+
+def probe_live_replicas(run_cli, addrs: list, left) -> dict:
+    """The operator's tools on a live chaos cluster: ``peer metrics``
+    (every target, merged), ``peer top --once``, ``peer slo --json``, then
+    a last scrape of each replica once its frame counts stop moving (the
+    census and the frames are read by one render, while the replica's
+    loop may still carry frames)."""
+    from minbft_tpu_torch.obs.prom import parse_exposition, scrape
+
+    res = run_cli("metrics", *addrs)
+    check(res.returncode == 0 and "merged cluster aggregate" in res.stdout,
+          f"peer metrics: rc {res.returncode}: {res.stderr[-500:]}")
+    merged = parse_exposition(res.stdout.split("merged cluster aggregate", 1)[1]
+                              .split("\n", 1)[1])
+    res = run_cli("top", "--once", *addrs)
+    check(res.returncode == 0, f"peer top --once: rc {res.returncode}: "
+          f"{res.stdout[-300:]} {res.stderr[-300:]}")
+    top = res.stdout.rstrip().splitlines()
+    res = run_cli("slo", "--json", *addrs)
+    check(res.returncode == 0, f"peer slo --json: rc {res.returncode}: {res.stderr[-300:]}")
+    slo = json.loads(res.stdout)
+    check(len(slo["targets"]) == len(addrs), f"peer slo: {len(slo['targets'])} targets")
+    scrapes = []
+    for addr in addrs:
+        last = None
+        while True:
+            fams = parse_exposition(scrape(addr, timeout=10))
+            census = census_from_scrape(fams)
+            if last is not None and census == last:
+                break
+            last = census
+            check(left() > 5, f"chaos: {addr}'s frame counts never settled")
+            time.sleep(0.5)
+        scrapes.append((fams, census))
+    return {"top": top, "scrapes": scrapes,
+            "merged_items": sum(merged.get("minbft_verify_queue_items_total",
+                                           {"samples": {}})["samples"].values())}
+
+
+def check_chaos_replica(i: int, fams: dict, census: dict, rep, replay, fault_plan) -> dict:
+    """One chaos replica's row: its scraped engine families show verify
+    and sign items and no queue count above its engine report at SIGTERM
+    (``rep``; None without an engine), and its scraped fault census is
+    non-zero and equals the replay of the seed over the scrape's frames."""
+    rows = engine_rows(fams)
+    row = {"census": census["seeded"], "frames": sum(census["frames"].values()),
+           "scrape": rows}
+    if rep is not None:
+        check(any(v[0] > 0 for v in rows.get("verify", {}).values())
+              and any(v[0] > 0 for v in rows.get("sign", {}).values()),
+              f"chaos replica {i}: scraped engine families {rows}")
+        for side in ("verify", "sign"):
+            for q, (items, batches) in rows.get(side, {}).items():
+                dq = rep[side].get(q, {"items": 0, "batches": 0})
+                check(items <= dq["items"] and batches <= dq["batches"],
+                      f"chaos replica {i} {side} {q}: scraped ({items}, {batches}) above "
+                      f"the SIGTERM report ({dq['items']}, {dq['batches']})")
+        row["report"] = {side: {q: (v["items"], v["batches"]) for q, v in rep[side].items()}
+                         for side in ("verify", "sign")}
+    want = replay.replay_counts(census["frames"], plan=fault_plan)
+    check(sum(census["seeded"].values()) > 0,
+          f"chaos replica {i}: an empty fault census {census}")
+    check(census["seeded"] == want,
+          f"chaos replica {i}: scraped census {census['seeded']} != the replay "
+          f"of seed {CHAOS_SEED:#x} over its frames {want}")
+    check(census["frames"] and all(f"r{i}" in link for link in census["frames"]),
+          f"chaos replica {i}: links {sorted(census['frames'])}")
+    return row
+
+
+def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
                    n_requests: int = DEPLOY_REQUESTS,
-                   n_clients: int = DEPLOY_CLIENTS) -> dict:
-    """``peer testnet`` (n = 4, NATIVE_ECDSA USIGs, 20 clients), four
-    ``peer run`` processes over TCP with their engines on cuda:0 and the
-    trace dump on, one ``peer request``, one ``peer bench`` (20 clients x
-    depth 24, 2,000 requests), then SIGTERM: every process must exit 0,
-    every replica's engine dump must show K2 and K3 batches on cuda:0
-    with no dispatch timed out, and no log may hold an ERROR record."""
+                   n_clients: int = DEPLOY_CLIENTS,
+                   depth: int = DEPLOY_DEPTH, chaos: bool = False) -> dict:
+    """``peer testnet`` (n = 4, NATIVE_ECDSA USIGs), four ``peer run``
+    processes over TCP with their engines on ``device`` (None:
+    ``--no-batch``, host crypto, a CPU rehearsal) and the trace dump on,
+    one ``peer request`` (not under chaos), one ``peer bench`` of
+    ``n_clients`` x ``depth``, ``n_requests`` requests, then SIGTERM:
+    every request must commit, every process exit 0, every engine dump
+    show K2 and K3 batches on ``device`` with no dispatch timed out, and
+    no replica log hold an ERROR record.
+
+    With ``chaos`` the replicas also run ``--metrics-port 0`` with
+    ``MINBFT_CHAOS_SEED`` pinned to ``CHAOS_SEED`` and
+    ``MINBFT_CHAOS_PLAN`` = ``CHAOS_PLAN`` (each replica's outbound links
+    go through the seeded fault-injection network), and before SIGTERM
+    :func:`probe_live_replicas` reads them; each replica must then pass
+    :func:`check_chaos_replica`.  Everything runs inside
+    ``CHAOS_BUDGET_S`` (``DEPLOY_BUDGET_S`` without chaos)."""
     import shutil
     import tempfile
 
     import yaml
 
-    d = tempfile.mkdtemp(prefix="minbft-smoke-deploy.")
+    t_phase = time.time()
+    budget = CHAOS_BUDGET_S if chaos else DEPLOY_BUDGET_S
+    label = "chaos" if chaos else "deploy"
+    d = tempfile.mkdtemp(prefix=f"minbft-smoke-{label}.")
     base_port = bench._free_base_port(DEPLOY_N)
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
                MINBFT_TRACE_DUMP=f"{d}/trace",
-               CONSENSUS_TIMEOUT_REQUEST="600s", CONSENSUS_TIMEOUT_PREPARE="300s",
-               CONSENSUS_TIMEOUT_VIEWCHANGE="600s")
-    peer = [sys.executable, "-m", "minbft_tpu_torch.sample.peer"]
-    on_card = device.startswith("cuda")
+               **(CHAOS_TIMEOUTS if chaos else DEPLOY_TIMEOUTS))
+    replica_env = dict(env, MINBFT_CHAOS_SEED=hex(CHAOS_SEED),
+                       MINBFT_CHAOS_PLAN=CHAOS_PLAN) if chaos else env
+    peer = ["-m", "minbft_tpu_torch.sample.peer"]
+    dev_args = ["--device", device] if device else ["--no-batch"]
+    run_args = [*dev_args, "--metrics-port", "0"] if chaos else dev_args
+    on_card = bool(device) and device.startswith("cuda")
     procs: list = []
     logs: list = []
+
+    def left() -> float:
+        remaining = budget - (time.time() - t_phase)
+        check(remaining > 0, f"{label}: past its {budget:.0f} s budget")
+        return remaining
+
+    def run_cli(*args) -> subprocess.CompletedProcess:
+        return subprocess.run(bench._child_cmd(*peer, *args), env=env,
+                              capture_output=True, text=True, timeout=left())
+
     try:
         baseline_mib = bench.gpu_memory_used_mib() if on_card else 0.0
         res = subprocess.run(
-            peer + ["testnet", "-n", str(DEPLOY_N), "--usig", "NATIVE_ECDSA",
-                    "--clients", str(n_clients), "-d", d,
-                    "--base-port", str(base_port)],
-            env=env, capture_output=True, text=True, timeout=300)
-        check(res.returncode == 0, f"peer testnet: rc {res.returncode}: {res.stderr[-500:]}")
+            [sys.executable, *peer, "testnet", "-n", str(DEPLOY_N), "--usig", "NATIVE_ECDSA",
+             "--clients", str(n_clients), "-d", d, "--base-port", str(base_port)],
+            env=env, capture_output=True, text=True, timeout=left())
+        check(res.returncode == 0, f"{label} testnet: rc {res.returncode}: {res.stderr[-500:]}")
         with open(f"{d}/keys.yaml") as fh:
             spec = yaml.safe_load(fh)["usig"]["keyspec"]
-        check(spec == "NATIVE_ECDSA", f"peer testnet: keys.yaml names {spec}")
+        check(spec == "NATIVE_ECDSA", f"{label} testnet: keys.yaml names {spec}")
         common = ["--config", f"{d}/consensus.yaml", "--transport", "tcp"]
         t0 = time.time()
         for i in range(DEPLOY_N):
             log = open(f"{d}/replica{i}.log", "wb")
             logs.append(log)
             procs.append(subprocess.Popen(
-                bench._child_cmd("-m", "minbft_tpu_torch.sample.peer",
-                                 "--keys", f"{d}/keys.replica{i}.yaml", *common,
-                                 "run", str(i), "--device", device),
-                env=env, stdout=subprocess.DEVNULL, stderr=log))
-        check(bench._wait_ports([base_port + i for i in range(DEPLOY_N)]),
-              "peer run: replicas never bound their ports")
+                bench._child_cmd(*peer, "--keys", f"{d}/keys.replica{i}.yaml", *common,
+                                 "run", str(i), *run_args),
+                env=replica_env, stdout=subprocess.DEVNULL, stderr=log))
+        check(bench._wait_ports([base_port + i for i in range(DEPLOY_N)], timeout=left()),
+              f"{label}: replicas never bound their ports")
         start_s = time.time() - t0
-        client = ["-m", "minbft_tpu_torch.sample.peer", "--keys", f"{d}/keys.yaml", *common]
-        res = subprocess.run(bench._child_cmd(*client, "request", "--timeout", "120",
-                                              "--device", device, "smoke-deploy-op"),
-                             env=env, capture_output=True, text=True, timeout=300)
-        out = res.stdout.strip()
-        check(res.returncode == 0 and len(out) == 64
-              and all(c in "0123456789abcdef" for c in out),
-              f"peer request: rc {res.returncode}, stdout {out!r}, {res.stderr[-500:]}")
-        check(" ERROR " not in res.stderr, f"peer request logged ERROR: {res.stderr[-500:]}")
+        if chaos:
+            addrs = [f"127.0.0.1:{metrics_port(f'{d}/replica{i}.log', left())}"
+                     for i in range(DEPLOY_N)]
+            for i in range(DEPLOY_N):
+                with open(f"{d}/replica{i}.log", errors="replace") as fh:
+                    check(f"chaos: seed={CHAOS_SEED:#x} plan={CHAOS_PLAN}" in fh.read(),
+                          f"chaos: replica {i} did not announce the chaos wrap")
+        client = [*peer, "--keys", f"{d}/keys.yaml", *common]
+        if not chaos:
+            res = run_cli("--keys", f"{d}/keys.yaml", *common, "request", "--timeout", "120",
+                          *dev_args, "smoke-deploy-op")
+            out = res.stdout.strip()
+            check(res.returncode == 0 and len(out) == 64
+                  and all(c in "0123456789abcdef" for c in out),
+                  f"peer request: rc {res.returncode}, stdout {out!r}, {res.stderr[-500:]}")
+            check(" ERROR " not in res.stderr, f"peer request logged ERROR: {res.stderr[-500:]}")
         bench_proc = subprocess.Popen(
             bench._child_cmd(*client, "bench", "--clients", str(n_clients),
-                             "--depth", str(DEPLOY_DEPTH), "--requests",
-                             str(n_requests), "--tag", "smoke", "--timeout", "240",
-                             "--device", device),
+                             "--depth", str(depth), "--requests", str(n_requests),
+                             "--tag", label, "--timeout", str(int(min(budget, 240))),
+                             *dev_args),
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         procs.append(bench_proc)
         with bench.ProcessSampler([p.pid for p in procs[:DEPLOY_N]],
                                   gpu=on_card) as sampler:
-            stdout, stderr = bench_proc.communicate(timeout=900)
+            try:
+                stdout, stderr = bench_proc.communicate(timeout=left())
+            except subprocess.TimeoutExpired:
+                bench_proc.kill()
+                stdout, stderr = bench_proc.communicate()
+                fail(f"{label}: peer bench did not finish inside the {budget:.0f} s budget: "
+                     f"{stderr[-800:]}")
             t_end = time.time()
         check(bench_proc.returncode == 0,
-              f"peer bench: rc {bench_proc.returncode}: {stderr[-800:]}")
-        errs = [ln for ln in stderr.splitlines() if " ERROR " in ln]
-        check(not errs, f"peer bench logged ERROR: {errs[:3]}")
+              f"{label} peer bench: rc {bench_proc.returncode}: {stderr[-800:]}")
+        if not chaos:
+            errs = [ln for ln in stderr.splitlines() if " ERROR " in ln]
+            check(not errs, f"peer bench logged ERROR: {errs[:3]}")
         report = json.loads(stdout.strip().splitlines()[-1])
         check(report["committed"] == n_requests
               and len(report["latencies_ms"]) == n_requests,
-              f"peer bench: {report['committed']} of {n_requests} committed")
-        faults = bench.engine_faults(report["engine"], device)
-        check(not faults, f"peer bench (client process): {'; '.join(faults)}")
+              f"{label} peer bench: {report['committed']} of {n_requests} committed")
+        if device:
+            faults = bench.engine_faults(report["engine"], device)
+            check(not faults, f"{label} peer bench (client process): {'; '.join(faults)}")
         cpu = sampler.cpu_per_wall(t_end - report["seconds"], t_end)
+        probe = probe_live_replicas(run_cli, addrs, left) if chaos else {}
         for p in procs[:DEPLOY_N]:
             p.terminate()
         for i, p in enumerate(procs[:DEPLOY_N]):
             try:
-                rc = p.wait(timeout=bench.MP_STOP_TIMEOUT_S)
+                rc = p.wait(timeout=max(min(left(), bench.MP_STOP_TIMEOUT_S), 1))
             except subprocess.TimeoutExpired:
-                fail(f"peer run {i}: still running {bench.MP_STOP_TIMEOUT_S} s after SIGTERM")
-            check(rc == 0, f"peer run {i}: exit code {rc} after SIGTERM")
-        launches = dict(report["engine"]["launches"])
-        dumps = []
+                fail(f"{label} peer run {i}: still running after SIGTERM")
+            check(rc == 0, f"{label} peer run {i}: exit code {rc} after SIGTERM")
+        if chaos:
+            from minbft_tpu_torch.testing import FaultNet, plan_from_spec
+
+            fault_plan = plan_from_spec(CHAOS_PLAN)
+            replay = FaultNet(seed=CHAOS_SEED, default_plan=fault_plan)
+        launches = dict(report["engine"]["launches"]) if device else {}
+        dumps, replicas = [], []
         for i in range(DEPLOY_N):
             with open(f"{d}/replica{i}.log", errors="replace") as fh:
                 text = fh.read()
             errs = [ln for ln in text.splitlines() if " ERROR " in ln]
-            check(not errs, f"peer run {i} logged ERROR: {errs[:3]}")
-            with open(f"{d}/trace.engine{i}.json") as fh:
-                doc = json.load(fh)
-            faults = bench.engine_faults(doc["engine"], device)
-            check(not faults, f"peer run {i} (engine dump): {'; '.join(faults)}")
-            for kid, v in doc["engine"]["launches"].items():
-                launches[kid] = launches.get(kid, 0) + v
-            dumps.append(doc["engine"])
+            check(not errs, f"{label} peer run {i} logged ERROR: {errs[:3]}")
+            rep = None
+            if device:
+                with open(f"{d}/trace.engine{i}.json") as fh:
+                    rep = json.load(fh)["engine"]
+                faults = bench.engine_faults(rep, device)
+                check(not faults, f"{label} peer run {i} (engine dump): {'; '.join(faults)}")
+                for kid, v in rep["launches"].items():
+                    launches[kid] = launches.get(kid, 0) + v
+                dumps.append(rep)
+            if chaos:
+                fams, census = probe["scrapes"][i]
+                replicas.append(check_chaos_replica(i, fams, census, rep, replay, fault_plan))
         lat = sorted(report["latencies_ms"])
+        engines = dumps + ([report["engine"]] if device else [])
         return {
             "requests": report["committed"], "seconds": report["seconds"],
             "req_per_sec": report["req_per_sec"],
@@ -1235,10 +1460,13 @@ def run_deployment(bench, repo: str, device: str = "cuda:0",
             # the card's sandbox lists every process under one pid, so the
             # memory they took together is the device's in use over the
             # drive less the baseline.
-            "contexts": sum(bool(rep["cuda_context"]) for rep in dumps + [report["engine"]]),
-            "cuda_reserved_mib": [rep["cuda_reserved_mib"] for rep in dumps + [report["engine"]]],
-            "gpu_memory_mib": sampler.gpu_peak_mib - baseline_mib,
+            "contexts": sum(bool(rep["cuda_context"]) for rep in engines),
+            "cuda_reserved_mib": [rep["cuda_reserved_mib"] for rep in engines],
+            "gpu_memory_mib": (sampler.gpu_peak_mib - baseline_mib) if on_card else 0.0,
             "start_s": start_s, "launches": launches, "engines": dumps,
+            "replicas": replicas, "top": probe.get("top", []),
+            "merged_items": probe.get("merged_items", 0),
+            "phase_s": time.time() - t_phase,
         }
     finally:
         for p in procs:
@@ -2086,6 +2314,8 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 13")
     # -- phase 13: the bench entry point, in-process ------------------------------
     os.environ["MINBFT_BENCH_RUNS"] = "1"
+    for knob in ("MINBFT_BENCH_INGEST_REQUESTS", "MINBFT_BENCH_RO_READS"):
+        os.environ.pop(knob, None)
     extras_path = os.path.join(bench.OUT_DIR, "extras.json")
     for section in BENCH_SECTIONS:
         path = f"bench_{section}"
@@ -2116,9 +2346,37 @@ def main() -> int:
         missing = sorted(bench_expected_keys(section) - set(extras))
         check(not missing, f"{path}: keys missing {missing}")
         need = {"kernels": ("K2'", "K3", "K6'", "K6s", "K7'", "K8"),
-                "mac": ("K6",), "cfg4": ("K2", "K3", "K6")}[section]
+                "mac": ("K6",), "cfg4": ("K2", "K3", "K6"),
+                "ingest": ("K2", "K3", "K6"), "readonly": ()}[section]
         check(all(win[k] > 0 for k in need), f"{path}: a kernel of the path was not "
               f"launched {win}")
+        if section == "readonly":
+            # Host crypto, no engine, as in the reference: no launch.
+            check(extras["ro_reads"] == RO_READS and extras["ro_clients"] == RO_CLIENTS
+                  and extras["ro_fast_replies"] == 4 * RO_READS,
+                  f"{path}: {extras['ro_reads']} reads, {extras['ro_fast_replies']} "
+                  f"fast replies")
+            print(f"{path}: n=4, {extras['ro_clients']} clients, {extras['ro_reads']} "
+                  f"reads on the fast path, {extras['ro_reads_per_sec']} reads/s "
+                  f"(host crypto); launches {win}")
+            continue
+        if section == "ingest":
+            for p in INGEST_PREFIXES:
+                check(extras[f"{p}_requests"] == INGEST_COMMITTED
+                      and extras[f"{p}_dispatch_timeouts"] == 0
+                      and extras.get(f"{p}_sign_fallback_items", 0) == 0,
+                      f"{path} {p}: {extras[f'{p}_requests']} requests, "
+                      f"{extras[f'{p}_dispatch_timeouts']} timeouts")
+                print(f"{path} {p}: n=4, HMAC USIG, bucket 128, "
+                      f"{extras[f'{p}_requests']} requests, committed "
+                      f"{extras[f'{p}_committed_req_per_sec']} req/s, latency p50 "
+                      f"{extras[f'{p}_request_latency_p50_ms']} ms p99 "
+                      f"{extras[f'{p}_request_latency_p99_ms']} ms; ingest batch mean "
+                      f"{extras[f'{p}_ingest_batch_mean']}, ticks/s "
+                      f"{extras[f'{p}_ingest_ticks_per_sec']}; USIG queue mean batch "
+                      f"{extras[f'{p}_mean_batch']}")
+            print(f"{path}: launches {win}")
+            continue
         if section == "kernels":
             print(f"{path}: ECDSA verifies/s {extras['ecdsa_verifies_per_sec']:,.0f} "
                   f"(B={extras['ecdsa_batch']}, {extras['ecdsa_ms_per_batch']} ms), "
@@ -2226,7 +2484,40 @@ def main() -> int:
           f"{extras['mptcp_gpu_memory_mib']} MiB")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 15")
-    # -- phase 15 ----------------------------------------------------------------
+    # -- phase 15: the deployment path under chaos, with the metrics endpoint -----
+    res = subprocess.run(
+        [sys.executable, "-m", "minbft_tpu_torch.sample.peer", "selftest",
+         "--chaos-seed", hex(CHAOS_SEED), "--chaos-profile", CHAOS_PLAN],
+        env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in res.stderr.splitlines() if ln.startswith("chaos ")]
+    check(res.returncode == 0 and len(lines) == 3 and "invariants green" in lines[2],
+          f"peer selftest --chaos-seed: rc {res.returncode}: {res.stderr[-800:]}")
+    print(f"selftest_chaos (in-process, host crypto): {lines[1]}; {lines[2]}")
+    chaos = run_deployment(bench, repo, n_requests=CHAOS_REQUESTS, chaos=True)
+    counts = {kid: 0 for kid in wrappers}
+    counts.update({k: v for k, v in chaos["launches"].items() if k in counts})
+    check(counts["K2"] > 0 and counts["K3"] > 0, f"chaos_tcp: launches {counts}")
+    path_launches["chaos_tcp"] = counts
+    print(f"chaos_tcp (n={DEPLOY_N}, NATIVE_ECDSA, TCP, MINBFT_CHAOS_SEED={CHAOS_SEED:#x} "
+          f"MINBFT_CHAOS_PLAN={CHAOS_PLAN}, --metrics-port 0, engines on cuda:0): "
+          f"{chaos['requests']} requests in {chaos['seconds']} s, committed "
+          f"{chaos['req_per_sec']} req/s, latency p50 {chaos['p50_ms']} ms p99 "
+          f"{chaos['p99_ms']} ms; the clean testnet_tcp above: {dep['req_per_sec']} req/s, "
+          f"p50 {dep['p50_ms']} ms p99 {dep['p99_ms']} ms; phase {chaos['phase_s']:.1f} s "
+          f"of its {CHAOS_BUDGET_S:.0f} s budget; peer metrics' merged aggregate: "
+          f"{chaos['merged_items']:.0f} verify items; launches {counts}")
+    for i, row in enumerate(chaos["replicas"]):
+        print(f"chaos_tcp replica {i} fault census {row['census']} over {row['frames']} "
+              f"frames (= the replay of the seed)")
+        print(f"chaos_tcp replica {i} engine rows (items, batches): scrape "
+              f"{row['scrape']}, SIGTERM report {row['report']}")
+    print("chaos_tcp peer top --once:")
+    for ln in chaos["top"]:
+        print(f"  {ln}")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 16")
+    # -- phase 16 ----------------------------------------------------------------
     meta = {
         "K1": ("field_op (csrc/field.cuh, p256_field.cuh and ed25519_field.cuh libraries)",
                "minbft_tpu_torch/csrc/field.cuh", "minbft_tpu/ops/limbs.py:335"),

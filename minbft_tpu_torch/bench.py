@@ -20,7 +20,11 @@ kinds of section:
   engine's batch, memo and prep keys, the ``_util_`` keys of
   :class:`~minbft_tpu_torch.obs.DeviceLedger`, and the ``_stage_`` and
   ``_critpath_`` keys of one traced run (every configuration gets one;
-  the reference traces ``e2e`` and ``cfg5`` only);
+  the reference traces ``e2e`` and ``cfg5`` only); ``ingest``
+  (``bench_ingest_sweep``: n = 4, HMAC USIGs, bucket 128, one run per
+  bundle-ingest operating point, ``ingest_off``, ``ingest8``,
+  ``ingest64``, ``ingest1024``) and ``readonly`` (``_bench_readonly``:
+  the read-only fast path, host crypto, no engine, as in the reference);
 - **multi-process** — ``mp`` (gRPC) and ``mptcp`` (TCP, depth 48 by
   ``MINBFT_BENCH_MPTCP_DEPTH``), the reference's ``_bench_mp_cluster``:
   n = 7, f = 3, one ``peer run`` process per replica and the 20 clients
@@ -49,12 +53,9 @@ headline line ``{"metric": "batched ECDSA-P256 verifies/sec/chip", ...}``
 stamped with the backend, the device and its power limit.
 
 Left out (ROADMAP.md queue 1, each with the module it waits for):
-``_bench_readonly``, ``bench_groups``, ``bench_load``,
-``bench_groups_chips`` and ``bench_recovery`` (groups, loadgen, testing,
-recovery soak), and ``use_mesh`` (multi-GPU); ``bench_ingest_sweep``
-waits for no module (the core's bundle-ingest runtime it sweeps,
-``core/message_handling.py`` ``_BundleIngestor``, is ported) and is not
-ported yet.  Dropped
+``bench_groups``, ``bench_load``, ``bench_groups_chips`` and
+``bench_recovery`` (groups, loadgen, recovery soak), and ``use_mesh``
+(multi-GPU).  Dropped
 as JAX- or TPU-only: the lowering modes and ``*_mode`` keys, the compile
 cache keys, ``tpu_unavailable``, the ``last_tpu`` carry-forward, the TPU
 ceiling and the ``vs_baseline`` ratio.
@@ -100,11 +101,11 @@ SIGN_QUEUE_BUCKET = 2048
 CFG4_BUCKET = 128
 
 SECTIONS = (
-    "kernels", "e2e", "nodedup", "nodedupref", "cfg1", "cfg2", "cfg4", "mac",
-    "cfg5", "iso", "mp", "mptcp",
+    "kernels", "e2e", "ingest", "readonly", "nodedup", "nodedupref", "cfg1",
+    "cfg2", "cfg4", "mac", "cfg5", "iso", "mp", "mptcp",
 )
 # The in-process configurations past e2e, and the multi-process runs.
-CONFIG_SECTIONS = SECTIONS[4:10]
+CONFIG_SECTIONS = ("cfg1", "cfg2", "cfg4", "mac", "cfg5", "iso")
 MP_SECTIONS = ("mp", "mptcp")
 # Per-request deadline of the cluster drives (the reference's).
 REQUEST_TIMEOUT_S = 240.0
@@ -1223,6 +1224,127 @@ def _bench_mp_repeated(n, f, n_requests, prefix="mp", depth=None, **kw) -> dict:
     return out
 
 
+async def _bench_readonly(n=4, f=1, n_reads=4000, n_clients=16) -> dict:
+    """Read-only fast-path throughput: reads skip consensus — one
+    broadcast, n query replies, no PREPARE/COMMIT waves, no USIG — so
+    read throughput shows what the ordering pipeline costs writes.
+    Minimal in-process cluster with host crypto, as in the reference:
+    reads never touch an engine, so this section launches no kernel.
+    Unlike the reference, a failed run fails the section."""
+    from .client import new_client
+    from .core import new_replica
+    from .sample.authentication import new_test_authenticators
+    from .sample.config import SimpleConfiger
+    from .sample.conn.inprocess import (
+        InProcessClientConnector,
+        InProcessPeerConnector,
+        make_testnet_stubs,
+    )
+    from .sample.requestconsumer import SimpleLedger
+
+    cfg = SimpleConfiger(n=n, f=f, timeout_request=900.0, timeout_prepare=450.0)
+    r_auths, c_auths = new_test_authenticators(n, n_clients=n_clients)
+    stubs = make_testnet_stubs(n)
+    ledgers = [SimpleLedger() for _ in range(n)]
+    replicas = []
+    for i in range(n):
+        r = new_replica(i, cfg, r_auths[i], InProcessPeerConnector(stubs), ledgers[i])
+        stubs[i].assign_replica(r)
+        replicas.append(r)
+    for r in replicas:
+        await r.start()
+    clients = []
+    for c in range(n_clients):
+        # Heal rare losses instead of wedging the section (as
+        # _bench_cluster): the ordered-read fallback has no per-request
+        # deadline here.
+        client = new_client(c, n, f, c_auths[c], InProcessClientConnector(stubs),
+                            seq_start=0, retransmit_interval=30.0)
+        await client.start()
+        clients.append(client)
+    try:
+        await asyncio.wait_for(clients[0].request(b"write-1"), REQUEST_TIMEOUT_S)
+        for _ in range(200):  # all n ledgers must agree before fast reads
+            if all(lg.length == 1 for lg in ledgers):
+                break
+            await asyncio.sleep(0.02)
+        if not all(lg.length == 1 for lg in ledgers):
+            # Proceeding would turn every fast read into a 30 s all-n
+            # timeout and fallback: fail the section fast instead.
+            raise BenchError(f"readonly: the cluster never agreed on the seed "
+                             f"write: {[lg.length for lg in ledgers]}")
+        per = max(1, n_reads // n_clients)
+        n_reads = per * n_clients
+
+        async def reader(cl):
+            for _ in range(per):
+                await cl.request(b"head", read_only=True, read_timeout=30.0)
+
+        t0 = time.monotonic()
+        await asyncio.wait_for(asyncio.gather(*(reader(cl) for cl in clients)), 600)
+        elapsed = time.monotonic() - t0
+        fast_served = sum(
+            r.handlers.metrics.counters.get("readonly_served", 0) for r in replicas
+        )
+        return {
+            "ro_reads": n_reads,
+            "ro_clients": n_clients,
+            "ro_reads_per_sec": round(n_reads / elapsed, 1),
+            # n * n_reads when every read took the fast path (no fallback)
+            "ro_fast_replies": fast_served,
+        }
+    finally:
+        for cl in clients:
+            await cl.stop()
+        for r in replicas:
+            await r.stop()
+
+
+INGEST_POINTS = (("ingest_off", None), ("ingest8", 8), ("ingest64", 64),
+                 ("ingest1024", 1024))
+
+
+def bench_ingest_sweep(n_requests: int = 600, n_clients: int = 16,
+                       device=None) -> dict:
+    """Ingest-batch-size sweep: one short in-process cluster run (n = 4,
+    HMAC USIGs, one bucket of 128, the engine on ``device``) per
+    operating point of the core's bundle-ingest runtime —
+
+    - ``ingest_off``: MINBFT_BUNDLE_INGEST=0, the per-frame-task path;
+    - ``ingest{K}``: bundle ingest with MINBFT_INGEST_MAX=K flat frames
+      per tick.
+
+    Each point emits the cluster keys under its prefix, so its committed
+    req/s rides next to its ``*_ingest_batch_mean`` and
+    ``*_ingest_ticks_per_sec``: how much bundle the drain collects at
+    each cap, and what that buys.  HMAC USIGs keep the crypto cheap, so
+    the host pipeline (what the sweep varies) dominates.  Unlike the
+    reference, which prints a failed point and goes on, a failed point
+    fails the section."""
+    out: dict = {}
+    for prefix, cap in INGEST_POINTS:
+        env_before = {
+            k: os.environ.get(k) for k in ("MINBFT_BUNDLE_INGEST", "MINBFT_INGEST_MAX")
+        }
+        if cap is None:
+            os.environ["MINBFT_BUNDLE_INGEST"] = "0"
+            os.environ.pop("MINBFT_INGEST_MAX", None)
+        else:
+            os.environ.pop("MINBFT_BUNDLE_INGEST", None)
+            os.environ["MINBFT_INGEST_MAX"] = str(cap)
+        try:
+            out.update(asyncio.run(_bench_cluster(
+                4, 1, n_requests, n_clients=n_clients, usig_kind="hmac",
+                max_batch=128, prefix=prefix, device=device)))
+        finally:
+            for k, v in env_before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return out
+
+
 def _device_stamp(dev: torch.device) -> dict:
     if dev.type != "cuda":
         return {"backend": "cpu", "device": "cpu", "power_limit": None}
@@ -1287,6 +1409,12 @@ def main(argv=None) -> int:
         want = {"kernels"}
         if not skip("E2E"):
             want.add("e2e")
+        # The ingest sweep and the read-only section are host-path work,
+        # in the default run on every device (shorter on the CPU).
+        if not skip("INGEST"):
+            want.add("ingest")
+        if not skip("RO"):
+            want.add("readonly")
         if all_configs and not skip("NODEDUP"):
             want |= {"nodedup", "nodedupref"}
         # The multi-process runs join the default run on the card only:
@@ -1343,6 +1471,14 @@ def main(argv=None) -> int:
     # BASELINE config 3: n = 7, f = 3, ECDSA-P256, 10k requests.
     cluster("e2e", 7, 3, n_requests, n_clients=n_clients, usig_kind="ecdsa",
             warm_run=True)
+    # The bundle-ingest operating points: n = 4, HMAC USIGs, bucket 128.
+    section("ingest", lambda: bench_ingest_sweep(
+        _env_int("MINBFT_BENCH_INGEST_REQUESTS", 400 if on_cpu else 600), device=dev))
+    ro_reads = _env_int("MINBFT_BENCH_RO_READS", 4000)
+    if on_cpu and ro_reads > 400:
+        print("bench: the CPU clamps ro_reads to 400", file=sys.stderr, flush=True)
+        ro_reads = 400
+    section("readonly", lambda: asyncio.run(_bench_readonly(n_reads=ro_reads)))
     cluster("nodedup", 7, 3, _env_int("MINBFT_BENCH_NODEDUP_REQUESTS", 2000),
             n_clients=min(n_clients, 50), usig_kind="ecdsa", prefix="nodedup",
             no_dedup=True, runs=1)
@@ -1382,7 +1518,7 @@ def main(argv=None) -> int:
         "prep_share", "prep_speedup", "prep_items_per_sec", "backend", "device",
         "power_limit", "_util_", "queue_depth_peak", "dispatch_timeouts",
         "cpu_per_wall", "cuda_contexts", "cuda_reserved_mib", "context_mib",
-        "gpu_memory_mib", "_launches",
+        "gpu_memory_mib", "_launches", "reads_per_sec", "ingest_batch_mean",
     )
     compact = {k: extras[k] for k in sorted(extras) if any(p in k for p in keep)}
     print(json.dumps({"bench_extras": compact}))

@@ -59,9 +59,13 @@ def git_rev() -> str:
 def backend() -> str:
     """The torch device the port's kernels run on: ``cuda:<card name>``
     when PyTorch sees a CUDA card, ``cpu`` otherwise (the plain PyTorch
-    versions).  Never imports JAX."""
-    import torch
-
+    versions), IF torch is already loaded; ``unloaded`` otherwise, as the
+    reference does for jax: importing torch from an obs module would force
+    it into processes (``peer top``, a ``--no-batch`` replica, dump
+    mergers) that never touch it.  Never imports JAX."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return "unloaded"
     try:
         if torch.cuda.is_available():
             return f"cuda:{torch.cuda.get_device_name(0)}"

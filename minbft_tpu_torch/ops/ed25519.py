@@ -132,6 +132,7 @@ def verify_packed_plain(rows: torch.Tensor) -> torch.Tensor:
     return verify_plain(*cols, rows[:, 5 * nl], rows[:, 5 * nl + 1] != 0)
 
 
+@torch.inference_mode()
 def verify_plain(ax, ay, u1, u2, ry, rsign, valid) -> torch.Tensor:
     """Plain PyTorch version of K7' (and, through
     :func:`verify_packed_plain`, of K7): ax, ay, u1, u2, ry [B, 16] limbs
@@ -481,6 +482,7 @@ def _comb_table_np() -> np.ndarray:
     return tab
 
 
+@torch.inference_mode()
 def rb_plain(r: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K8: [B, 16] nonce limbs (any integer
     dtype) and the [64, 16, 3, 16] comb table -> [B, 3, 16] int64

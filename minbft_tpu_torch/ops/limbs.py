@@ -206,7 +206,11 @@ def batch_inv_host(vals, mod):
 # bound by PyTorch's per-op overhead, not by arithmetic: they work on
 # whole columns of the batch at once and keep the op count per field
 # operation small (the carry ripple runs over 48-bit words, three limbs
-# each, instead of over 16 limbs).
+# each, instead of over 16 limbs).  The plain versions the wrappers call
+# (``field_op_plain`` here, ``verify_plain``/``kg_plain``/``kg_ladder_plain``
+# in p256.py, ``verify_plain``/``rb_plain`` in ed25519.py) run under
+# ``torch.inference_mode()``, which drops autograd's share of that
+# overhead (about a third of a plain K2 call on the CPU).
 
 _M16 = 0xFFFF
 _M48 = (1 << 48) - 1
@@ -432,6 +436,7 @@ def field_spec(field: str) -> FieldSpec:
     return {"p": p256.FIELD, "n": p256.ORDER, "ed": ed25519.FIELD}[field]
 
 
+@torch.inference_mode()
 def field_op_plain(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
     """Plain PyTorch version of :func:`field_op` on int64 limb rows.
 

@@ -171,6 +171,7 @@ def verify_packed_plain(rows: torch.Tensor) -> torch.Tensor:
     return verify_plain(*cols, rows[:, 6 * L] != 0, rows[:, 6 * L + 1] != 0)
 
 
+@torch.inference_mode()
 def verify_plain(qx, qy, u1, u2, rr, r2, r2_ok, valid) -> torch.Tensor:
     """Plain PyTorch version of K2' (and, through
     :func:`verify_packed_plain`, of K2): qx, qy, u1, u2, r, r2 [B, 16]
@@ -552,6 +553,7 @@ def _comb_table_np() -> np.ndarray:
     _COMB_TABLE_NP = tab
     return tab
 
+@torch.inference_mode()
 def kg_plain(k: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K3: [B, 16] nonce limbs (any integer
     dtype) and the [64, 16, 2, 16] comb table -> [B, 2, 16] int64 (X, Z),
@@ -629,6 +631,7 @@ def _launch_kg(k: torch.Tensor, t: int) -> torch.Tensor:
 ecdsa_kg_kernel.launches = 0
 
 
+@torch.inference_mode()
 def kg_ladder_plain(k: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4, the reference's ``_kg_one`` per lane:
     [B, 16] nonce limbs (any integer dtype) -> [B, 2, 16] int64 (X, Z),

@@ -26,13 +26,12 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import secrets
-from typing import Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import numpy as np
 
 from ... import api
 from ...messages import UI
-from ...parallel import BatchVerifier
 from ...usig.software import (
     EcdsaUSIG,
     HmacUSIG,
@@ -41,6 +40,12 @@ from ...usig.software import (
     parse_usig_id,
 )
 from ...utils import hostcrypto as hc
+
+if TYPE_CHECKING:
+    # Annotations only: a process without an engine (``peer run
+    # --no-batch``, ``peer testnet``) never loads torch, as the
+    # reference's host-crypto processes never load jax.
+    from ...parallel import BatchVerifier
 
 _EPOCH_LEN = 8
 

@@ -27,12 +27,25 @@ crypto.  Without CUDA, and with neither of those flags, the process exits
 non-zero: nothing falls back to the host on its own.  The reference's CLI
 clients sign and verify on the host; the port's use the engine.
 
+Observability and chaos, as in the reference: ``run --metrics-port N``
+serves the Prometheus exposition (``obs/prom.py``; port 0 picks a free
+one and prints it to stderr) with the replica's counters, its engine's
+queues, its telemetry rings, its SLO ledger and recovery store and, under
+chaos, the fault census; ``peer metrics``, ``peer top`` and ``peer slo``
+read such endpoints.  ``MINBFT_CHAOS_SEED`` (with ``MINBFT_CHAOS_PLAN``,
+a profile name or inline probabilities, default ``lossy``) sends a
+replica's outbound peer traffic through the seeded fault-injection
+network (``testing/faultnet.py``), and ``selftest --chaos-seed/
+--chaos-profile`` runs the in-process smoke through it.
+
+    python -m minbft_tpu_torch.sample.peer ... run 0 --metrics-port 0
+    python -m minbft_tpu_torch.sample.peer metrics 127.0.0.1:9464 127.0.0.1:9465
+    python -m minbft_tpu_torch.sample.peer top --once 127.0.0.1:9464
+
 Options whose modules are not ported yet exit non-zero naming the
-ROADMAP.md item that will lift them: ``run --metrics-port`` (item 5,
-``obs/prom.py``), ``--groups`` above 1 and ``--chips`` other than 1
-(items 6 and 7), ``MINBFT_CHAOS_SEED`` and ``selftest --chaos-*`` (item 5,
-``testing/``).  The subcommands ``metrics``, ``top``, ``slo`` and ``load``
-come with those modules.
+ROADMAP.md item that will lift them: ``--groups`` above 1 (item 6,
+``groups/``), ``--chips`` other than 1 (item 7, ``parallel/pool.py``);
+the subcommand ``load`` (item 8, ``loadgen/``) is not parsed.
 
 ``MINBFT_TRACE_DUMP=base`` turns the flight recorder on: at shutdown a
 replica writes its stage dump, its telemetry ring and
@@ -244,13 +257,14 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         "--metrics-port",
         type=int,
         default=_opt("metrics_port", -1, section="run"),
-        help="Prometheus endpoint: not ported yet (obs/prom.py); any "
-        "value but the default -1 exits",
+        help="serve Prometheus text on this port (0 = pick a free one, "
+        "printed to stderr; -1 = off)",
     )
     r.add_argument(
         "--metrics-host",
         default=_opt("metrics_host", "127.0.0.1", section="run"),
-        help="bind address for --metrics-port",
+        help="bind address for --metrics-port (default loopback: the "
+        "endpoint is unauthenticated)",
     )
     r.add_argument(
         "--groups",
@@ -283,6 +297,88 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         "startup.  MINBFT_STATE_DIR is the env equivalent; empty "
         "(default) = no durability.  A corrupted committed store file is "
         "FATAL at startup (exit code 4).",
+    )
+
+    m = sub.add_parser(
+        "metrics",
+        help="one-shot Prometheus scrape of replica --metrics-port "
+        "endpoints (one target: prints the exposition text; several: "
+        "per-target sections plus ONE merged cluster aggregate — the "
+        "log2 histograms merge exactly, counters sum)",
+    )
+    m.add_argument(
+        "addr",
+        nargs="+",
+        help="host:port (or full URL) of each replica's metrics endpoint",
+    )
+    m.add_argument("--timeout", type=float, default=5.0)
+    m.add_argument(
+        "--merged-only",
+        action="store_true",
+        help="with several targets: print only the merged cluster "
+        "aggregate, not the per-target sections",
+    )
+
+    tp = sub.add_parser(
+        "top",
+        help="live cluster console: watch replica --metrics-port "
+        "endpoints and render per-replica req/s, batch fill, device "
+        "utilization, queue depth, loop lag, view, and health flags "
+        "(commit stall / stale group).  Watch mode diffs consecutive "
+        "scrapes; --once renders a single frame from the "
+        "minbft_window_* gauges (CI-friendly).",
+    )
+    tp.add_argument(
+        "addr",
+        nargs="+",
+        help="host:port (or full URL) of each replica's metrics endpoint",
+    )
+    tp.add_argument(
+        "--interval", type=float, default=2.0,
+        help="refresh period in watch mode (seconds)",
+    )
+    tp.add_argument(
+        "--once", action="store_true",
+        help="render one frame and exit (rc=1 if any target is down)",
+    )
+    tp.add_argument("--timeout", type=float, default=5.0)
+    tp.add_argument(
+        "--no-clear", action="store_true",
+        help="append frames instead of clearing the screen",
+    )
+    tp.add_argument(
+        "--stall-flag", action="store_true",
+        help="exit 3 when any replica reports a commit stall, a stale "
+        "group, or a fast-window SLO burn at/over its threshold "
+        "(alerting hook for scripts)",
+    )
+
+    sl = sub.add_parser(
+        "slo",
+        help="one-shot latency-SLO report from replica --metrics-port "
+        "endpoints: per-group good/breached counts, remaining error "
+        "budget, fast/slow burn rates, and breach-dump spool counters; "
+        "--dumps additionally reads a trace-dump file set and prints the "
+        "per-segment breach attribution",
+    )
+    sl.add_argument(
+        "addr", nargs="+",
+        help="host:port (or full URL) of each replica's metrics endpoint",
+    )
+    sl.add_argument("--timeout", type=float, default=5.0)
+    sl.add_argument(
+        "--json", action="store_true",
+        help="machine-readable JSON instead of the table",
+    )
+    sl.add_argument(
+        "--dumps", default="",
+        help="MINBFT_TRACE_DUMP base path: load {base}.*.json and "
+        "append the breach attribution (policy from MINBFT_SLO_* env)",
+    )
+    sl.add_argument(
+        "--breach-flag", action="store_true",
+        help="exit 3 when any group's fast-window burn is at/over its "
+        "threshold (alerting hook for scripts)",
     )
 
     q = sub.add_parser("request", help="submit request(s) as a client")
@@ -342,13 +438,16 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         type=lambda s: int(s, 0),
         default=None,
         metavar="SEED",
-        help="fault-injection network: not ported yet (testing/); exits",
+        help="run the smoke workload through a seeded fault-injection "
+        "network (testing/faultnet.py); MINBFT_CHAOS_SEED overrides, "
+        "omitted = fresh random seed (printed for replay)",
     )
     st.add_argument(
         "--chaos-profile",
         choices=("lossy", "flaky", "slow"),
         default=None,
-        help="fault plan: not ported yet (testing/); exits",
+        help="fault plan applied to every link (default with --chaos-seed: "
+        "lossy); implies chaos mode",
     )
 
     t = sub.add_parser(
@@ -455,10 +554,6 @@ def engine_report(engine) -> dict:
 
 def _refuse_unported_run_options(args, cfg) -> None:
     """Exit on an option whose module is not ported."""
-    if args.metrics_port >= 0:
-        raise NotPortedError("--metrics-port (obs/prom.py)", "5")
-    if os.environ.get("MINBFT_CHAOS_SEED"):
-        raise NotPortedError("MINBFT_CHAOS_SEED (testing/faultnet.py)", "5")
     n_groups = args.groups if args.groups > 0 else getattr(cfg, "groups", 1)
     if n_groups > 1:
         raise NotPortedError(f"{n_groups} consensus groups (groups/)", "6")
@@ -518,6 +613,29 @@ async def _run_replica(args) -> int:
         if rid != args.id:
             conn.connect_replica(rid, addr)
 
+    # Env-gated chaos wrap (MINBFT_CHAOS_SEED): this replica's OUTBOUND
+    # peer traffic flows through the seeded fault-injection network.
+    # Sender-side injection covers every directed link when all replicas
+    # run with the seed (each owns its outgoing edges); the census rides
+    # the /metrics exposition so a soak can check it against the replay
+    # of the seed.  MINBFT_CHAOS_PLAN names a profile ("lossy") or inline
+    # probabilities ("drop=0.02,reset=0.01").
+    chaos_net = None
+    if os.environ.get("MINBFT_CHAOS_SEED"):
+        from ...testing import FaultNet, chaos_seed, plan_from_spec
+
+        run_chaos_seed = chaos_seed()
+        plan_spec = os.environ.get("MINBFT_CHAOS_PLAN", "lossy")
+        chaos_net = FaultNet(
+            seed=run_chaos_seed, default_plan=plan_from_spec(plan_spec)
+        )
+        conn = chaos_net.wrap(conn, f"r{args.id}")
+        print(
+            f"replica {args.id} chaos: seed={run_chaos_seed:#x} "
+            f"plan={plan_spec} (outbound links)",
+            file=sys.stderr,
+        )
+
     # Durable crash-recovery store (recovery/): flag wins, then
     # MINBFT_STATE_DIR; empty = no durability.
     from ...recovery import CorruptStoreError, state_dir_from_env
@@ -570,11 +688,12 @@ async def _run_replica(args) -> int:
     ]
     slo_spool = obs_slo.BreachSpool.from_env() if slo_ledgers else None
 
-    # Telemetry rings (obs/timeseries.py): sampled when the trace-dump
-    # surface can read them ({base}.rN.ts.json); without it the sampler
-    # stays off.
+    # Telemetry rings (obs/timeseries.py): sampled whenever anyone can
+    # read them — the Prometheus endpoint (minbft_window_* gauges feed
+    # `peer top --once`) or the trace-dump surface ({base}.rN.ts.json);
+    # without either the sampler stays off.
     tseries = sampler = None
-    if dump_base:
+    if args.metrics_port >= 0 or dump_base:
         from ...obs import timeseries as obs_ts
 
         tseries = obs_ts.TimeSeries()
@@ -584,6 +703,38 @@ async def _run_replica(args) -> int:
             obs_ts.register_engine_series(sampler, engine)
         for lg in slo_ledgers:
             obs_slo.register_slo_series(sampler, lg)
+
+    metrics_server = None
+    if args.metrics_port >= 0:
+        from ...obs import prom as obs_prom
+
+        def render() -> str:
+            # Called on the server's thread: it only reads.
+            fams = obs_prom.collect_replica(
+                metrics=replica.metrics,
+                recorder=replica.handlers.trace,
+                engine=engine,
+                replica_id=args.id,
+                timeseries=tseries,
+                slo=slo_ledgers[0] if slo_ledgers else None,
+                slo_spool=slo_spool,
+                recovery=getattr(replica, "recovery", None),
+            )
+            if chaos_net is not None:
+                fams.extend(obs_prom.collect_faultnet(
+                    chaos_net.census, base={"replica": str(args.id)}
+                ))
+            return obs_prom.render_families(fams)
+
+        metrics_server = obs_prom.MetricsServer(
+            render, host=args.metrics_host, port=args.metrics_port
+        )
+        mport = metrics_server.start()
+        print(
+            f"replica {args.id} metrics on "
+            f"http://{args.metrics_host}:{mport}/metrics",
+            file=sys.stderr,
+        )
 
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -690,6 +841,8 @@ async def _run_replica(args) -> int:
         print(f"replica {args.id} crashing: dumping trace", file=sys.stderr)
         try:
             await stop_sampler()
+            if metrics_server is not None:
+                metrics_server.stop()
             await replica.stop()
             dump_engine_obs()
             dump_ts()
@@ -704,6 +857,8 @@ async def _run_replica(args) -> int:
             pass
     await stop_sampler()
     print(f"replica {args.id} shutting down", file=sys.stderr)
+    if metrics_server is not None:
+        metrics_server.stop()
     await replica.stop()  # writes the replica's MINBFT_TRACE_DUMP file
     dump_engine_obs()
     dump_ts()
@@ -936,12 +1091,36 @@ async def _run_selftest(args) -> int:
     )
     from ...sample.requestconsumer import SimpleLedger
 
-    if args.chaos_seed is not None or args.chaos_profile is not None:
-        raise NotPortedError("selftest --chaos-* (testing/faultnet.py)", "5")
     n, f = 4, 1
     store = generate_testnet_keys(n, n_clients=1)
     cfg = SimpleConfiger(n=n, f=f, timeout_request=60.0, timeout_prepare=30.0)
     stubs = make_testnet_stubs(n)
+
+    # Chaos mode: the same smoke workload, but every link flows through a
+    # seeded fault-injection network — the CLI face of the chaos tests
+    # (deterministic replay via the printed seed / MINBFT_CHAOS_SEED).
+    net = None
+    if args.chaos_seed is not None or args.chaos_profile is not None:
+        from ...testing import PROFILES, FaultNet, chaos_seed
+
+        # The chaos seed is a PUBLIC replay token (printed so a failed
+        # run can be reproduced) — identifiers carry the "chaos" word
+        # so the secret-hygiene pass knows it is not key material.
+        run_chaos_seed = chaos_seed(args.chaos_seed)
+        profile = args.chaos_profile or "lossy"
+        net = FaultNet(seed=run_chaos_seed, default_plan=PROFILES[profile])
+        cfg = SimpleConfiger(
+            n=n, f=f, timeout_request=2.0, timeout_prepare=1.0,
+            timeout_viewchange=4.0,
+        )
+        print(
+            f"chaos selftest: profile={profile} seed={run_chaos_seed:#x} "
+            f"(replay: MINBFT_CHAOS_SEED={run_chaos_seed:#x})",
+            file=sys.stderr,
+        )
+
+    def _wrap(conn, endpoint):
+        return net.wrap(conn, endpoint) if net is not None else conn
 
     ledgers = [SimpleLedger() for _ in range(n)]
     replicas = []
@@ -950,7 +1129,7 @@ async def _run_selftest(args) -> int:
             i,
             cfg,
             store.replica_authenticator(i),
-            InProcessPeerConnector(stubs),
+            _wrap(InProcessPeerConnector(stubs), f"r{i}"),
             ledgers[i],
             opts=_log_opts(args),
         )
@@ -959,9 +1138,72 @@ async def _run_selftest(args) -> int:
     for r in replicas:
         await r.start()
     client = new_client(
-        0, n, f, store.client_authenticator(0), InProcessClientConnector(stubs),
+        0,
+        n,
+        f,
+        store.client_authenticator(0),
+        _wrap(InProcessClientConnector(stubs), "c0"),
+        retransmit_interval=1.0 if net is not None else None,
     )
     await client.start()
+
+    if net is not None:
+        # The smoke request plus a short seeded soak: more ordered
+        # traffic, then the cross-replica safety invariants.  The strict
+        # fast-read check below is skipped — under a lossy plan the
+        # no-fallback fast quorum is legitimately unavailable.  A
+        # TimeoutError here is the chaos run's MOST LIKELY failure mode
+        # (a wedged cluster) — it must fall through to the designed
+        # report (census + replay seed + clean teardown), not escape as
+        # a raw traceback that skips all three.
+        from ...testing import InvariantChecker
+
+        accepted = []
+        ok = True
+        try:
+            result = await asyncio.wait_for(client.request(b"selftest"), 60)
+            accepted.append((b"selftest", result))
+            ops = [b"chaos-%d" % i for i in range(5)]
+            results = await asyncio.wait_for(
+                asyncio.gather(
+                    *[client.request(op, timeout=90) for op in ops]
+                ),
+                120,
+            )
+            accepted.extend(zip(ops, results))
+        except asyncio.TimeoutError:
+            print("selftest: chaos workload wedged past its deadline",
+                  file=sys.stderr)
+            ok = False
+        want = len(accepted)
+        if ok:
+            for _ in range(600):
+                if all(lg.length >= want for lg in ledgers):
+                    break
+                await asyncio.sleep(0.05)
+            ok = all(lg.length >= want for lg in ledgers)
+        if ok:
+            try:
+                InvariantChecker(replicas, ledgers).check(accepted)
+            except AssertionError as e:
+                print(f"selftest FAILED: invariant violation: {e}",
+                      file=sys.stderr)
+                ok = False
+        await client.stop()
+        for r in replicas:
+            await r.stop()
+        census = net.census.snapshot()
+        print(f"chaos census: {census['counters']} "
+              f"({census['frames_total']} frames)", file=sys.stderr)
+        if not ok:
+            print("selftest FAILED: chaos workload did not commit on all "
+                  f"replicas (replay: MINBFT_CHAOS_SEED={net.chaos_seed:#x})",
+                  file=sys.stderr)
+            return 1
+        print(f"chaos selftest ok: {want} requests committed on all {n} "
+              f"replicas under seed {net.chaos_seed:#x}, invariants green",
+              file=sys.stderr)
+        return 0
 
     result = await asyncio.wait_for(client.request(b"selftest"), 60)
     for _ in range(200):
@@ -972,7 +1214,8 @@ async def _run_selftest(args) -> int:
     read_ok = False
     if ok:
         # and the read-only fast path: strict (no ordered fallback) so a
-        # fast-quorum regression fails the selftest loudly
+        # fast-quorum regression fails the selftest loudly — as the
+        # diagnostic line below, not an unhandled traceback
         try:
             head = await asyncio.wait_for(
                 client.request(
@@ -1081,6 +1324,443 @@ def _run_testnet_scaffold(args) -> int:
     return 0
 
 
+def _run_metrics_scrape(args) -> int:
+    """``peer metrics host:port [host:port ...]`` — fetch and print
+    Prometheus expositions from running replicas (synchronous GETs, no
+    event loop).
+
+    One target prints its exposition verbatim (the original contract).
+    Several targets print per-target sections and then ONE merged
+    cluster aggregate: the log2 histograms are exactly mergeable by
+    design (identical fixed bucket edges — obs/hist.py), counters sum,
+    and the per-process ``replica`` label is stripped so the same
+    logical series folds together.  A dead target costs its section
+    (and rc=1), never the others'."""
+    from ...obs.prom import merge_expositions, scrape
+
+    scraped: list = []
+    rc = 0
+    for addr in args.addr:
+        try:
+            scraped.append((addr, scrape(addr, timeout=args.timeout)))
+        except OSError as e:
+            print(
+                f"peer: metrics scrape of {addr} failed: {e}", file=sys.stderr
+            )
+            rc = 1
+    if not scraped:
+        return 1
+    if len(args.addr) == 1:
+        sys.stdout.write(scraped[0][1])
+        return rc
+    if not args.merged_only:
+        for addr, text in scraped:
+            print(f"# ==== target {addr} ====")
+            sys.stdout.write(text)
+    print(f"# ==== merged cluster aggregate ({len(scraped)} targets) ====")
+    sys.stdout.write(merge_expositions(text for _, text in scraped))
+    return rc
+
+
+def _scrape_top_state(addr: str, timeout: float) -> dict:
+    """One target's parsed state for the ``peer top`` console: per-
+    (replica, group) identity rows plus process-level engine readings,
+    all extracted from the standard exposition families."""
+    import time as _time
+
+    from ...obs.prom import parse_exposition, scrape
+
+    fams = parse_exposition(scrape(addr, timeout=timeout))
+
+    def samples(name: str) -> dict:
+        fam = fams.get(name)
+        return fam["samples"] if fam else {}
+
+    def total(name: str) -> float:
+        return float(sum(samples(name).values()))
+
+    def by_identity(name: str) -> dict:
+        out = {}
+        for key, v in samples(name).items():
+            lb = dict(key)
+            out[(lb.get("replica", "?"), lb.get("group", "-"))] = v
+        return out
+
+    state = {
+        "addr": addr,
+        "mono": _time.monotonic(),
+        "executed": by_identity("minbft_requests_executed_total"),
+        "view": by_identity("minbft_health_view"),
+        "stall": by_identity("minbft_health_commit_stall"),
+        "stale": by_identity("minbft_health_stale_group"),
+        "vchanges": by_identity("minbft_view_changes_completed_total"),
+        # Crash-recovery phase (recovery/): absent on targets
+        # running without a durable store — the console renders "-".
+        "recov": by_identity("minbft_recovery_phase"),
+        "build": {},
+        "depth": total("minbft_verify_queue_depth")
+        + total("minbft_sign_queue_depth"),
+        "peak": total("minbft_verify_queue_depth_peak")
+        + total("minbft_sign_queue_depth_peak"),
+        "device_s": total("minbft_verify_queue_device_seconds_total")
+        + total("minbft_sign_queue_device_seconds_total"),
+        "items": total("minbft_verify_queue_items_total"),
+        "batches": total("minbft_verify_queue_batches_total"),
+        # Admission sheds: requests refused at the admission
+        # boundary — a nonzero rate means offered load exceeds capacity.
+        "shed": total("minbft_admission_shed_total"),
+        "uptime": max(
+            samples("minbft_uptime_seconds").values(), default=0.0
+        ),
+        "window": {},
+    }
+    for key, _v in samples("minbft_build_info").items():
+        lb = dict(key)
+        state["build"][(lb.get("replica", "?"), lb.get("group", "-"))] = lb
+    # Engine-pool per-chip readings: keyed (replica, chip).
+    # Absent families leave the dicts empty — a pool-less target renders
+    # exactly as before.
+    chips: dict = {}
+    for fam_name, field in (
+        ("minbft_engine_pool_chip_busy", "busy"),
+        ("minbft_engine_pool_chip_fill", "fill"),
+        ("minbft_engine_pool_chip_depth", "depth"),
+        ("minbft_engine_pool_chip_up", "up"),
+    ):
+        for key, v in samples(fam_name).items():
+            lb = dict(key)
+            ident = (lb.get("replica", "?"), lb.get("chip", "?"))
+            chips.setdefault(ident, {})[field] = v
+    state["chips"] = chips
+    state["home_chip"] = by_identity("minbft_engine_pool_home_chip")
+    # SLO families (obs/slo.py): absent when the target runs without a
+    # policy — the console renders "-" columns, never crashes.
+    state["slo_budget"] = by_identity("minbft_slo_budget_remaining")
+    state["slo_threshold"] = by_identity("minbft_slo_burn_threshold")
+    burn: dict = {}
+    for key, v in samples("minbft_slo_burn_rate").items():
+        lb = dict(key)
+        burn[(
+            lb.get("replica", "?"), lb.get("group", "-"),
+            lb.get("window", "fast"),
+        )] = v
+    state["slo_burn"] = burn
+    for name, fam in fams.items():
+        if name.startswith("minbft_window_"):
+            state["window"][name[len("minbft_window_"):]] = next(
+                iter(fam["samples"].values()), 0.0
+            )
+    return state
+
+
+def _top_frame(states: dict, errors: dict, prev: dict) -> "tuple[list, bool]":
+    """Render one console frame: header + one row per (replica, group)
+    identity per target, DOWN rows for unreachable targets.  Returns
+    ``(lines, unhealthy)`` — unhealthy when any row flags a commit
+    stall or stale group (the --stall-flag exit hook)."""
+    from ...recovery import PHASE_NAMES
+
+    lines = [
+        f"{'TARGET':<24}{'R':>3}{'G':>3}{'REQ/S':>9}{'SHED/S':>8}"
+        f"{'FILL':>7}{'UTIL%':>7}{'DEPTH':>7}{'PEAK':>6}{'LAG_MS':>8}"
+        f"{'BURN':>6}{'BUDG':>6}{'VIEW':>5}{'RECOV':>8}  HEALTH"
+    ]
+    unhealthy = False
+    for addr in sorted(set(states) | set(errors)):
+        if addr in errors:
+            lines.append(f"{addr:<24}{'—':>3}{'—':>3}  DOWN: {errors[addr]}")
+            continue
+        st = states[addr]
+        pv = prev.get(addr)
+        dt = (st["mono"] - pv["mono"]) if pv else 0.0
+
+        def rate(cur: float, last: float, window_key: str) -> float:
+            # watch mode: counter delta over the scrape gap; first
+            # frame / --once: the server-side window gauge, falling
+            # back to the lifetime mean when rings are off.
+            if pv is not None and dt > 0 and cur >= last:
+                return (cur - last) / dt
+            if window_key in st["window"]:
+                return st["window"][window_key]
+            return cur / st["uptime"] if st["uptime"] > 0 else 0.0
+
+        # Process-level engine readings (shared across the target's rows).
+        if pv is not None and dt > 0 and st["device_s"] >= pv["device_s"]:
+            util = 100.0 * (st["device_s"] - pv["device_s"]) / dt
+        else:
+            util = (
+                100.0 * st["device_s"] / st["uptime"]
+                if st["uptime"] > 0
+                else 0.0
+            )
+        if (
+            pv is not None
+            and st["batches"] > pv["batches"]
+            and st["items"] >= pv["items"]
+        ):
+            fill = (st["items"] - pv["items"]) / (
+                st["batches"] - pv["batches"]
+            )
+        elif "verify_fill" in st["window"]:
+            fill = st["window"]["verify_fill"]
+        else:
+            fill = st["items"] / st["batches"] if st["batches"] else 0.0
+        # Shed rate is target-level (admission counters sum across the
+        # target's groups); shown on every row of the target.
+        shed_rate = rate(
+            st["shed"], pv["shed"] if pv else 0.0, "admission_shed"
+        )
+        identities = sorted(
+            set(st["executed"]) | set(st["build"]) | set(st["view"])
+        )
+        if not identities:
+            identities = [("?", "-")]
+        for rid, grp in identities:
+            ident = (rid, grp)
+            executed = st["executed"].get(ident, 0.0)
+            win_key = (
+                f"committed_g{grp}" if grp != "-" else "committed"
+            )
+            rps = rate(
+                executed,
+                pv["executed"].get(ident, 0.0) if pv else 0.0,
+                win_key,
+            )
+            lag_key = (
+                f"loop_lag_p50_ms_g{grp}" if grp != "-"
+                else "loop_lag_p50_ms"
+            )
+            lag = st["window"].get(lag_key, 0.0)
+            flags = []
+            if st["stall"].get(ident):
+                flags.append("STALL")
+                unhealthy = True
+            if st["stale"].get(ident):
+                flags.append("STALE")
+                unhealthy = True
+            # SLO columns (the reference's perf/SLO.md): fast-window burn multiple and
+            # remaining error budget; crossing the policy's threshold
+            # raises BREACH (and trips --stall-flag like a stall).
+            fast_burn = st.get("slo_burn", {}).get((rid, grp, "fast"))
+            budget = st.get("slo_budget", {}).get(ident)
+            thr = st.get("slo_threshold", {}).get(ident)
+            if (fast_burn is not None and thr is not None and thr > 0
+                    and fast_burn >= thr):
+                flags.append("BREACH")
+                unhealthy = True
+            burn_s = f"{fast_burn:.1f}" if fast_burn is not None else "-"
+            budg_s = f"{budget:.2f}" if budget is not None else "-"
+            vc = st["vchanges"].get(ident, 0)
+            if vc:
+                flags.append(f"vc={int(vc)}")
+            view = int(st["view"].get(ident, 0))
+            # RECOV: the durable-store recovery phase by short name; a
+            # replica stuck in "fetch"/"install" long after restart is
+            # the console's first visible symptom of a wedged transfer.
+            ph = st.get("recov", {}).get(ident)
+            if ph is None:
+                recov_s = "-"
+            else:
+                pi = int(ph)
+                recov_s = (
+                    PHASE_NAMES[pi] if 0 <= pi < len(PHASE_NAMES) else str(pi)
+                )
+            lines.append(
+                f"{addr:<24}{rid:>3}{grp:>3}{rps:>9.1f}{shed_rate:>8.1f}"
+                f"{fill:>7.1f}{min(util, 999.0):>7.1f}{st['depth']:>7.0f}"
+                f"{st['peak']:>6.0f}{lag:>8.2f}{burn_s:>6}{budg_s:>6}"
+                f"{view:>5}{recov_s:>8}  {' '.join(flags) or 'ok'}"
+            )
+            # Engine-pool expansion: the group's home chip as a sub-row
+            # (the reference's pool families; the port has no pool yet,
+            # so its own targets never show one).  A chip the scrape knows nothing about (or one
+            # whose every queue wrote its device off) renders DOWN with
+            # zeroed readings — missing fields must never crash a frame.
+            home = st.get("home_chip", {}).get(ident)
+            if home is not None:
+                chip = str(int(home))
+                row = st.get("chips", {}).get((rid, chip), {})
+                down = not row or not row.get("up", 0)
+                lines.append(
+                    f"{'':<24} └ chip {chip:<3}"
+                    f" busy={row.get('busy', 0.0):<7.3f}"
+                    f" fill={row.get('fill', 0.0):<7.3f}"
+                    f" depth={row.get('depth', 0.0):<6.0f}"
+                    f" {'DOWN' if down else 'up'}"
+                )
+        build = next(iter(st["build"].values()), None)
+        if build is not None:
+            lines.append(
+                f"{'':<24} └ pid={build.get('pid', '?')} "
+                f"backend={build.get('backend', '?')} "
+                f"rev={build.get('git_rev', '?')} "
+                f"run={str(build.get('run_id', '?'))[:18]}"
+            )
+    return lines, unhealthy
+
+
+def _run_top(args) -> int:
+    """``peer top`` — the live cluster console.  Watch mode
+    clears and redraws every ``--interval`` seconds, computing rates
+    from consecutive-scrape counter deltas; ``--once`` prints a single
+    frame whose rates come from the replicas' own ``minbft_window_*``
+    gauges (one scrape, no diffing — the CI/scripting mode)."""
+    import time as _time
+
+    prev: dict = {}
+    while True:
+        states: dict = {}
+        errors: dict = {}
+        for addr in args.addr:
+            try:
+                states[addr] = _scrape_top_state(addr, args.timeout)
+            except OSError as e:
+                errors[addr] = str(e)
+        lines, unhealthy = _top_frame(states, errors, prev)
+        if not args.once and not args.no_clear and sys.stdout.isatty():
+            sys.stdout.write("\x1b[2J\x1b[H")
+        print("\n".join(lines), flush=True)
+        if args.once:
+            if errors:
+                return 1
+            if args.stall_flag and unhealthy:
+                return 3
+            return 0
+        prev = states
+        try:
+            _time.sleep(args.interval)
+        except KeyboardInterrupt:
+            return 0
+
+
+def _run_slo(args) -> int:
+    """``peer slo`` — one-shot latency-SLO report (perf/SLO.md in the reference).
+
+    Scrapes each target's ``minbft_slo_*`` families and prints one row
+    per (target, group): lifetime good/breached counts, the policy's
+    target/objective, remaining error budget, fast/slow burn multiples,
+    and the breach-dump spool counters.  ``--dumps BASE`` additionally
+    loads a trace-dump file set ({base}.*.json) and appends the
+    per-segment breach attribution.  rc: 0 ok, 1 scrape failure, 3 with
+    ``--breach-flag`` when any fast burn is at/over its threshold."""
+    import json as _json
+
+    from ...obs.prom import parse_exposition, scrape
+
+    rc = 0
+    breach = False
+    report: dict = {"targets": []}
+    for addr in args.addr:
+        try:
+            fams = parse_exposition(scrape(addr, timeout=args.timeout))
+        except OSError as e:
+            print(f"peer: slo scrape of {addr} failed: {e}",
+                  file=sys.stderr)
+            rc = 1
+            continue
+
+        def samples(name: str) -> dict:
+            fam = fams.get(name)
+            return fam["samples"] if fam else {}
+
+        groups: dict = {}
+
+        def fold(name: str, field: str) -> None:
+            for key, v in samples(name).items():
+                lb = dict(key)
+                g = lb.get("group", "-")
+                f = (
+                    f"{field}_{lb['window']}" if "window" in lb else field
+                )
+                groups.setdefault(g, {})[f] = v
+
+        fold("minbft_slo_good_total", "good")
+        fold("minbft_slo_breached_total", "breached")
+        fold("minbft_slo_target_ms", "target_ms")
+        fold("minbft_slo_objective", "objective")
+        fold("minbft_slo_budget_remaining", "budget_remaining")
+        fold("minbft_slo_burn_threshold", "burn_threshold")
+        fold("minbft_slo_burn_rate", "burn")
+        spool = {
+            "written": sum(
+                samples("minbft_slo_breach_dumps_total").values()
+            ),
+            "suppressed": sum(
+                samples(
+                    "minbft_slo_breach_dumps_suppressed_total"
+                ).values()
+            ),
+        }
+        for g in groups.values():
+            total = g.get("good", 0) + g.get("breached", 0)
+            g["good_fraction"] = (
+                round(g.get("good", 0) / total, 4) if total else 1.0
+            )
+            thr = g.get("burn_threshold", 0)
+            if thr > 0 and g.get("burn_fast", 0.0) >= thr:
+                g["breach"] = True
+                breach = True
+        report["targets"].append(
+            {"addr": addr, "groups": groups, "spool": spool}
+        )
+    if args.dumps:
+        from ...obs import slo as obs_slo
+        from ...obs.trace import load_dumps
+
+        docs = load_dumps(args.dumps)
+        report["breach_report"] = obs_slo.breach_report(
+            docs, obs_slo.SLOPolicy.from_env()
+        )
+    if args.json:
+        print(_json.dumps(report, sort_keys=True), flush=True)
+    else:
+        print(
+            f"{'TARGET':<24}{'G':>3}{'GOOD':>9}{'BREACHED':>9}"
+            f"{'GOODFRAC':>9}{'TARGET_MS':>10}{'BUDGET':>8}"
+            f"{'FAST':>7}{'SLOW':>7}  FLAG"
+        )
+        for tgt in report["targets"]:
+            if not tgt["groups"]:
+                print(f"{tgt['addr']:<24}  (no SLO policy — set "
+                      "MINBFT_SLO_TARGET_MS or protocol.slo)")
+                continue
+            for g in sorted(tgt["groups"]):
+                row = tgt["groups"][g]
+                print(
+                    f"{tgt['addr']:<24}{g:>3}"
+                    f"{int(row.get('good', 0)):>9}"
+                    f"{int(row.get('breached', 0)):>9}"
+                    f"{row.get('good_fraction', 1.0):>9.4f}"
+                    f"{row.get('target_ms', 0.0):>10.0f}"
+                    f"{row.get('budget_remaining', 1.0):>8.2f}"
+                    f"{row.get('burn_fast', 0.0):>7.1f}"
+                    f"{row.get('burn_slow', 0.0):>7.1f}"
+                    f"  {'BREACH' if row.get('breach') else 'ok'}"
+                )
+            if tgt["spool"]["written"] or tgt["spool"]["suppressed"]:
+                print(
+                    f"{'':<24} └ breach dumps: "
+                    f"{int(tgt['spool']['written'])} written, "
+                    f"{int(tgt['spool']['suppressed'])} suppressed"
+                )
+        br = report.get("breach_report")
+        if br:
+            print(
+                f"breach attribution ({br['origin']}-origin, "
+                f"{br['breached']}/{br['requests']} breached, "
+                f"{br['breached_spend_ms']}ms spent):"
+            )
+            for seg, ms in sorted(
+                br["attribution_ms"].items(), key=lambda kv: -kv[1]
+            ):
+                print(f"  {seg:<16}{ms:>12.3f} ms")
+    if rc:
+        return rc
+    if args.breach_flag and breach:
+        return 3
+    return 0
+
+
 def main(argv=None) -> int:
     path, explicit = peek_options_path(argv)
     args = build_parser(load_peer_options(path, explicit)).parse_args(argv)
@@ -1096,6 +1776,12 @@ def main(argv=None) -> int:
         if maybe_enable_uvloop():
             logging.getLogger("minbft.peer").info("event loop: uvloop")
         return asyncio.run(_run_replica(args))
+    if args.command == "metrics":
+        return _run_metrics_scrape(args)
+    if args.command == "top":
+        return _run_top(args)
+    if args.command == "slo":
+        return _run_slo(args)
     if args.command == "request":
         return asyncio.run(_run_request(args))
     if args.command == "bench":

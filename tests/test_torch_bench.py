@@ -9,6 +9,14 @@ where its functions run the plain PyTorch versions of the kernels.
   engine (one run and one traced run) commits every request and emits
   the reference's ``{prefix}_*`` keys, its ``_util_`` and ``_stage_``
   keys included, with no dispatch timed out;
+- ``_bench_readonly`` (host crypto, no engine) runs for real and emits
+  the reference's ``ro_*`` keys; ``bench_ingest_sweep`` drives one
+  cluster run per bundle-ingest operating point under the reference's
+  environment and arguments and emits the reference's prefixes (the
+  cluster run itself is stubbed here: on the CPU each point's plain K2
+  dispatches and ceiling probe cost about a minute, and its keys are the
+  MAC cluster's above), fails on a failed point, and restores the
+  environment;
 - ``main`` refuses to run without CUDA unless asked for the CPU, writes
   its extras to build/torch_bench/extras.json and prints the headline
   line last; named sections run exactly as named, the reference's
@@ -169,23 +177,38 @@ def test_main_default_run_follows_the_reference_knobs(monkeypatch):
     _stub_kernel_section(monkeypatch, calls)
     monkeypatch.setattr(bench, "_bench_cluster_repeated", lambda *a, prefix="e2e", **kw: (
         ran.append(prefix) or {f"{prefix}_committed_req_per_sec": 1.0}))
+    # The ingest sweep and the read-only section are host-path work and
+    # join the default run on every device, in the reference's order.
+    monkeypatch.setattr(bench, "bench_ingest_sweep", lambda n, device: (
+        ran.append(("ingest", n)) or {"ingest_off_requests": n}))
+
+    async def readonly(n_reads):
+        ran.append(("readonly", n_reads))
+        return {"ro_reads": n_reads}
+
+    monkeypatch.setattr(bench, "_bench_readonly", readonly)
     for knob in ("ALL_CONFIGS", "SKIP_E2E", "SKIP_SIGN", "SKIP_ED25519",
-                 "SKIP_NODEDUP", "SKIP_CONFIGS"):
+                 "SKIP_NODEDUP", "SKIP_CONFIGS", "SKIP_INGEST", "SKIP_RO",
+                 "INGEST_REQUESTS", "RO_READS"):
         monkeypatch.delenv(f"MINBFT_BENCH_{knob}", raising=False)
     assert bench.main(["--device", "cpu"]) == 0
-    assert ran == ["e2e"] and len(calls) == 6
+    # the CPU sizes: 400 requests a point, reads clamped to 400
+    assert ran == ["e2e", ("ingest", 400), ("readonly", 400)] and len(calls) == 6
     monkeypatch.setenv("MINBFT_BENCH_ALL_CONFIGS", "1")
     monkeypatch.setenv("MINBFT_BENCH_SKIP_NODEDUP", "1")
     monkeypatch.setenv("MINBFT_BENCH_SKIP_SIGN", "1")
+    monkeypatch.setenv("MINBFT_BENCH_SKIP_INGEST", "1")
+    monkeypatch.setenv("MINBFT_BENCH_RO_READS", "64")
     ran.clear(), calls.clear()
     assert bench.main(["--device", "cpu"]) == 0
-    assert ran == ["e2e", "cfg1", "cfg2", "cfg4", "mac", "cfg5", "iso"]
+    assert ran == ["e2e", ("readonly", 64), "cfg1", "cfg2", "cfg4", "mac", "cfg5", "iso"]
     assert [c[0] for c in calls] == ["hmac", "ecdsa", "bench_ed25519", "bench_ed25519_sign"]
     monkeypatch.delenv("MINBFT_BENCH_ALL_CONFIGS")
     monkeypatch.setenv("MINBFT_BENCH_SKIP_CONFIGS", "1")
+    monkeypatch.setenv("MINBFT_BENCH_SKIP_RO", "1")
     ran.clear(), calls.clear()
-    assert bench.main(["--device", "cpu", "mac", "nodedup"]) == 0
-    assert ran == ["nodedup", "mac"] and calls == []
+    assert bench.main(["--device", "cpu", "mac", "nodedup", "ingest"]) == 0
+    assert ran == [("ingest", 400), "nodedup", "mac"] and calls == []
 
 
 def test_main_fails_a_named_section_that_produced_no_keys(monkeypatch):
@@ -271,3 +294,58 @@ def test_launch_totals_sum_every_kernel_over_the_processes():
     reports = [_engine_report(launches=2), _engine_report(launches=3)]
     reports[1]["launches"]["K6"] = 4
     assert bench.launch_totals(reports) == {"K2": 5, "K3": 5, "K6": 4}
+
+
+def test_readonly_section_emits_the_reference_keys():
+    """The read-only fast path for real at a small size (host crypto, no
+    engine, as in the reference): every read takes the fast path, n
+    replies each, and the keys are the reference's."""
+    import asyncio
+
+    out = asyncio.run(bench._bench_readonly(n_reads=48, n_clients=4))
+    assert set(out) == {"ro_reads", "ro_clients", "ro_reads_per_sec", "ro_fast_replies"}
+    assert out["ro_reads"] == 48 and out["ro_clients"] == 4
+    assert out["ro_fast_replies"] == 4 * 48 and out["ro_reads_per_sec"] > 0
+
+
+# The reference's bench_ingest_sweep: each point's prefix and what it
+# sets, MINBFT_BUNDLE_INGEST=0 for the per-frame path, else the cap.
+REF_INGEST_POINTS = [("ingest_off", {"MINBFT_BUNDLE_INGEST": "0", "MINBFT_INGEST_MAX": None}),
+                     ("ingest8", {"MINBFT_BUNDLE_INGEST": None, "MINBFT_INGEST_MAX": "8"}),
+                     ("ingest64", {"MINBFT_BUNDLE_INGEST": None, "MINBFT_INGEST_MAX": "64"}),
+                     ("ingest1024", {"MINBFT_BUNDLE_INGEST": None,
+                                     "MINBFT_INGEST_MAX": "1024"})]
+
+
+def test_ingest_sweep_runs_each_operating_point_as_the_reference(monkeypatch):
+    seen = []
+
+    async def cluster(n, f, n_requests, **kw):
+        seen.append(((n, f, n_requests), kw, {
+            k: os.environ.get(k) for k in ("MINBFT_BUNDLE_INGEST", "MINBFT_INGEST_MAX")}))
+        return {f"{kw['prefix']}_{s}": 1 for s in CLUSTER_SUFFIXES}
+
+    monkeypatch.setattr(bench, "_bench_cluster", cluster)
+    monkeypatch.setenv("MINBFT_INGEST_MAX", "33")
+    monkeypatch.delenv("MINBFT_BUNDLE_INGEST", raising=False)
+    out = bench.bench_ingest_sweep(24, device="cpu")
+    assert [kw["prefix"] for _, kw, _ in seen] == [p for p, _ in REF_INGEST_POINTS]
+    for (args, kw, env), (prefix, want_env) in zip(seen, REF_INGEST_POINTS):
+        assert args == (4, 1, 24) and env == want_env
+        assert kw == {"n_clients": 16, "usig_kind": "hmac", "max_batch": 128,
+                      "prefix": prefix, "device": "cpu"}
+    assert set(out) == {f"{p}_{s}" for p, _ in REF_INGEST_POINTS for s in CLUSTER_SUFFIXES}
+    assert {f"{p}_ingest_batch_mean" for p, _ in REF_INGEST_POINTS} <= set(out)
+    # the environment is restored
+    assert os.environ["MINBFT_INGEST_MAX"] == "33"
+    assert "MINBFT_BUNDLE_INGEST" not in os.environ
+
+    async def failing(n, f, n_requests, **kw):
+        if kw["prefix"] == "ingest64":
+            raise bench.BenchError("a request past its deadline")
+        return await cluster(n, f, n_requests, **kw)
+
+    monkeypatch.setattr(bench, "_bench_cluster", failing)
+    with pytest.raises(bench.BenchError):  # the port's rule: a failed point fails
+        bench.bench_ingest_sweep(24, device="cpu")
+    assert os.environ["MINBFT_INGEST_MAX"] == "33"

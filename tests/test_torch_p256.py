@@ -11,8 +11,9 @@ and n-1, the exact doubling and negation cases of the G+Q table entry),
 and rows with r2_ok = 1 built directly.  The ladder k*G (K4) is held against
 the reference's ``ecdsa_kg_ladder_kernel`` and, through ``sign_finish``,
 against the comb K3.  The JAX oracle runs at the reference suite's own
-bucket shapes (8 verify rows, 8 lanes of arrays, 16 nonces), so it
-compiles at most once per shape, except K4 (8 nonces).  Everything is an integer: comparisons
+shapes (8 lanes of ``_verify_batch``, the packed rows' lane function; 6
+nonces of the comb), so a whole run compiles it once per shape, except
+K4 (8 nonces), which no reference test compiles.  Everything is an integer: comparisons
 are exact.  Inputs are made from a numpy seed."""
 
 import hashlib
@@ -102,8 +103,19 @@ def test_prepare_packed_matches_reference(lanes):
 
 
 def test_plain_verify_matches_reference_kernel(rows, plain_verdicts):
+    """K2's plain version on the packed rows against the reference's
+    lane function.  The reference's packed kernel is ``vmap`` of
+    ``_verify_one_packed``, which slices the row into ``_verify_one``'s
+    eight arguments; its oracle here is that same lane function over the
+    same slices (``_verify_batch``, ``ecdsa_verify_kernel``) at
+    tests/test_p256.py's shape of 8 lanes, which a whole run compiles
+    once, and the slicing is the reference's own ``pack_arrays`` layout."""
+    arrays = _arrays_of(rows)
+    for k in (0, 8):
+        assert np.array_equal(ref.pack_arrays([a[k : k + 8] for a in arrays]),
+                              rows[k : k + 8])
     want = np.concatenate([
-        np.asarray(ref.ecdsa_verify_kernel_packed(jnp.asarray(rows[k : k + 8])))
+        np.asarray(ref.ecdsa_verify_kernel(*(jnp.asarray(a[k : k + 8]) for a in arrays)))
         for k in (0, 8)
     ])
     assert np.array_equal(plain_verdicts, want)
@@ -118,10 +130,16 @@ def test_plain_verify_matches_host_oracle(lanes, plain_verdicts):
 
 
 def test_plain_kg_matches_reference_kernel(rows):
+    """K3's plain version on 16 nonces against the reference's comb
+    kernel, run in chunks of 6 lanes (the last padded with k = 1, as
+    ``sign_prepare`` pads): tests/test_p256_sign.py's shape, which a
+    whole run compiles once."""
     nonces = np.ascontiguousarray(rows[:, 32:48])  # u1 limbs as k
     nonces[13:] = limbs.to_limbs_batch([1, 2, hc.N - 1])
     got = port.ecdsa_kg_kernel(torch.from_numpy(nonces))
-    want = np.asarray(ref.ecdsa_kg_kernel(nonces))
+    padded = np.concatenate([nonces, limbs.to_limbs_batch([1, 1]).astype(nonces.dtype)])
+    want = np.concatenate([np.asarray(ref.ecdsa_kg_kernel(padded[k : k + 6]))
+                           for k in range(0, 18, 6)])[:16]
     assert got.dtype == torch.uint16
     assert np.array_equal(got.numpy(), want)
 

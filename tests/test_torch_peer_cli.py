@@ -1,13 +1,22 @@
 """The port's ``peer`` CLI (``minbft_tpu_torch.sample.peer``): the shared
 subcommands parse to the reference's namespace, the ``PEER_*`` and
-``peer.yaml`` layering, the scaffold and the selftest, the device rule
-(no CUDA and neither ``--device cpu`` nor ``--no-batch``: exit non-zero)
-and the options whose modules are not ported yet (exit non-zero, naming
-the ROADMAP item)."""
+``peer.yaml`` layering, the scaffold and the selftest (with its chaos
+mode), the device rule (no CUDA and neither ``--device cpu`` nor
+``--no-batch``: exit non-zero), the metrics endpoint and its readers
+(``run --metrics-port``, ``metrics``, ``top``, ``slo``: a replica process
+under ``MINBFT_CHAOS_SEED`` scraped as a user would, and the consoles'
+output on a fixed exposition against the reference's), and the options
+whose modules are not ported yet (exit non-zero, naming the ROADMAP
+item)."""
 
+import contextlib
+import io
+import json
 import os
+import re
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -33,6 +42,12 @@ SHARED_ARGV = [
     ["--transport", "tcp", "bench", "--clients", "20", "--client-base", "20",
      "--requests", "2000", "--depth", "48", "--timeout", "60", "--tag", "x"],
     ["selftest"],
+    ["selftest", "--chaos-seed", "0x7", "--chaos-profile", "flaky"],
+    ["metrics", "127.0.0.1:1", "127.0.0.1:2", "--timeout", "2", "--merged-only"],
+    ["top", "127.0.0.1:1", "--interval", "1", "--once", "--timeout", "2",
+     "--no-clear", "--stall-flag"],
+    ["slo", "127.0.0.1:1", "--timeout", "2", "--json", "--dumps", "base",
+     "--breach-flag"],
     ["testnet", "-n", "7", "-f", "3", "--clients", "20", "--base-port", "4000",
      "--host", "10.0.0.1", "-d", "net", "--usig", "NATIVE_ECDSA", "--macs"],
 ]
@@ -46,8 +61,15 @@ def _no_peer_env(monkeypatch):
             monkeypatch.delenv(var)
 
 
-@pytest.mark.parametrize("argv", SHARED_ARGV, ids=lambda a: a[a.index(next(
-    x for x in a if x in ("run", "request", "bench", "selftest", "testnet")))])
+SUBCOMMANDS = ("run", "request", "bench", "selftest", "testnet", "metrics", "top", "slo")
+
+
+def _argv_id(argv):
+    sub = next(x for x in argv if x in SUBCOMMANDS)
+    return sub + ("-chaos" if "--chaos-seed" in argv else "")
+
+
+@pytest.mark.parametrize("argv", SHARED_ARGV, ids=_argv_id)
 def test_shared_subcommands_parse_to_the_reference_namespace(argv):
     port = vars(cli.build_parser().parse_args(argv))
     ref = vars(ref_cli.build_parser().parse_args(argv))
@@ -139,14 +161,10 @@ def test_no_cuda_exits_non_zero_as_a_process(testnet):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["run", "0", "--no-batch", "--metrics-port", "0"], "item 5"),
     (["run", "0", "--no-batch", "--groups", "2"], "item 6"),
     (["run", "0", "--no-batch", "--chips", "0"], "item 7"),
-    (["run", "0", "--no-batch"], "item 5"),  # with MINBFT_CHAOS_SEED
-])
-def test_unported_run_options_exit(argv, item, testnet, monkeypatch):
-    if "--metrics-port" not in argv and "--groups" not in argv and "--chips" not in argv:
-        monkeypatch.setenv("MINBFT_CHAOS_SEED", "0x1")
+], ids=["argv1-item 6", "argv2-item 7"])
+def test_unported_run_options_exit(argv, item, testnet):
     with pytest.raises(SystemExit) as e:
         cli.main(testnet + argv)
     assert "not supported by the port yet" in str(e.value.code)
@@ -154,24 +172,247 @@ def test_unported_run_options_exit(argv, item, testnet, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["selftest", "--chaos-seed", "7"],
-    ["selftest", "--chaos-profile", "lossy"],
     ["testnet", "-n", "3", "--groups", "2"],
-], ids=["chaos-seed", "chaos-profile", "testnet-groups"])
+], ids=["testnet-groups"])
 def test_unported_selftest_and_testnet_options_exit(argv, tmp_path):
-    if argv[0] == "testnet":
-        argv = argv + ["-d", str(tmp_path)]
+    argv = argv + ["-d", str(tmp_path)]
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert "not supported by the port yet" in str(e.value.code)
 
 
-@pytest.mark.parametrize("sub", ["metrics", "top", "slo", "load"])
+@pytest.mark.parametrize("sub", ["load"])
 def test_subcommands_of_unported_modules_are_not_parsed(sub, capsys):
     with pytest.raises(SystemExit) as e:
         cli.build_parser().parse_args([sub, "127.0.0.1:1"])
     assert e.value.code == 2
     assert "invalid choice" in capsys.readouterr().err
+
+
+def test_chaos_selftest_prints_the_reference_census_line():
+    """``selftest --chaos-seed 7`` (in-process, host crypto) commits its
+    workload through the seeded lossy network with the invariants green,
+    and prints the reference's lines for the same seed: the replay line,
+    the census line (its form) and the verdict."""
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    env.pop("MINBFT_CHAOS_SEED", None)
+    out = {}
+    for pkg in ("minbft_tpu_torch", "minbft_tpu"):
+        res = subprocess.run([sys.executable, "-m", f"{pkg}.sample.peer", "selftest",
+                              "--chaos-seed", "7"], env=env, capture_output=True,
+                             text=True, timeout=240)
+        assert res.returncode == 0, res.stderr[-2000:]
+        out[pkg] = [ln for ln in res.stderr.splitlines() if ln.startswith("chaos ")]
+    port, ref = out["minbft_tpu_torch"], out["minbft_tpu"]
+    assert len(port) == len(ref) == 3
+    assert port[0] == ref[0] == (
+        "chaos selftest: profile=lossy seed=0x7 (replay: MINBFT_CHAOS_SEED=0x7)")
+    # The census line: the same form; its counts follow the frames the
+    # run's timing coalesced, so they may differ between two runs.
+    census = re.compile(r"chaos census: \{('[a-z_]+': \d+(, )?)*\} \(\d+ frames\)$")
+    assert census.match(port[1]) and census.match(ref[1]), (port[1], ref[1])
+    assert port[2] == ref[2] == (
+        "chaos selftest ok: 6 requests committed on all 4 replicas under seed "
+        "0x7, invariants green")
+
+
+def test_run_metrics_port_under_chaos_scraped_by_peer_metrics_top_and_slo(tmp_path):
+    """Three ``peer run --no-batch --metrics-port 0`` processes over TCP,
+    each with ``MINBFT_CHAOS_SEED`` and ``MINBFT_CHAOS_PLAN=lossy``: a
+    request commits; ``peer metrics`` (every target, merged), ``peer top
+    --once`` and ``peer slo --json`` read the live endpoints; each
+    replica's scraped fault census equals the reference's
+    ``FaultNet.replay_counts`` of the seed over the scraped frame
+    counts; SIGTERM stops each replica with exit code 0."""
+    from chip_smoke import census_from_scrape, metrics_port
+    from minbft_tpu.testing import FaultNet as RefFaultNet
+    from minbft_tpu.testing import plan_from_spec as ref_plan
+    from minbft_tpu_torch.obs.prom import parse_exposition, scrape
+    from minbft_tpu_torch.utils.netports import free_base_port, wait_ports
+
+    d = str(tmp_path)
+    base = free_base_port(3)
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    for var in [v for v in env if v.startswith("PEER_")]:
+        env.pop(var)
+    chaos_env = dict(env, MINBFT_CHAOS_SEED="0x5eed", MINBFT_CHAOS_PLAN="lossy")
+    peer = [sys.executable, "-m", "minbft_tpu_torch.sample.peer"]
+    assert subprocess.run(peer + ["testnet", "-n", "3", "-d", d, "--usig", "SOFT_ECDSA",
+                                  "--base-port", str(base)], env=env,
+                          capture_output=True, timeout=120).returncode == 0
+    common = ["--config", f"{d}/consensus.yaml", "--transport", "tcp"]
+    procs, logs = [], []
+    try:
+        for i in range(3):
+            logs.append(open(f"{d}/r{i}.log", "wb"))
+            procs.append(subprocess.Popen(
+                peer + ["--keys", f"{d}/keys.replica{i}.yaml", *common, "run", str(i),
+                        "--no-batch", "--metrics-port", "0"],
+                env=chaos_env, stdout=subprocess.DEVNULL, stderr=logs[i]))
+        assert wait_ports([base + i for i in range(3)], timeout=60)
+        addrs = [f"127.0.0.1:{metrics_port(f'{d}/r{i}.log', 60)}" for i in range(3)]
+        client = peer + ["--keys", f"{d}/keys.yaml", *common]
+        res = subprocess.run(client + ["request", "--no-batch", "--timeout", "60",
+                                       "metrics-op"], env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert res.returncode == 0 and len(res.stdout.strip()) == 64, res.stderr
+        # every replica executed: f + 1 replies precede the last one
+        for addr in addrs:
+            for _ in range(300):
+                fams = parse_exposition(scrape(addr))
+                if fams.get("minbft_requests_executed_total"):
+                    break
+                time.sleep(0.1)
+        res = subprocess.run(peer + ["metrics", *addrs], env=env, capture_output=True,
+                             text=True, timeout=60)
+        assert res.returncode == 0, res.stderr
+        merged = parse_exposition(res.stdout.split("merged cluster aggregate", 1)[1]
+                                  .split("\n", 1)[1])
+        assert merged["minbft_requests_executed_total"]["samples"][()] == 3
+        assert res.stdout.count("# ==== target ") == 3
+        res = subprocess.run(peer + ["top", "--once", *addrs], env=env,
+                             capture_output=True, text=True, timeout=60)
+        assert res.returncode == 0, res.stderr
+        rows = res.stdout.splitlines()
+        assert rows[0].startswith("TARGET") and sum(a in r for a in addrs for r in rows) >= 3
+        res = subprocess.run(peer + ["slo", "--json", *addrs], env=env,
+                             capture_output=True, text=True, timeout=60)
+        assert res.returncode == 0, res.stderr
+        assert [t["addr"] for t in json.loads(res.stdout)["targets"]] == addrs
+        plan = ref_plan("lossy")
+        for i, addr in enumerate(addrs):
+            census = census_from_scrape(parse_exposition(scrape(addr)))
+            want = RefFaultNet(seed=0x5EED, default_plan=plan).replay_counts(
+                census["frames"], plan=plan)
+            assert census["seeded"] == want and sum(census["frames"].values()) > 0
+            with open(f"{d}/r{i}.log") as fh:
+                assert f"replica {i} chaos: seed=0x5eed plan=lossy" in fh.read()
+        for p in procs:
+            p.terminate()
+        assert [p.wait(timeout=60) for p in procs] == [0, 0, 0]
+        with pytest.raises(OSError):
+            scrape(addrs[0], timeout=2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for fh in logs:
+            fh.close()
+
+
+# A fixed exposition of two replicas: protocol counters, health, engine
+# queues, the window gauges `top --once` reads, build info, SLO families.
+_EXPO = {
+    "0": """# TYPE minbft_build_info gauge
+minbft_build_info{backend="cpu",git_rev="abc1234",pid="11",replica="0",run_id="11-5"} 1
+# TYPE minbft_requests_executed_total counter
+minbft_requests_executed_total{replica="0"} 120
+# TYPE minbft_view_changes_completed_total counter
+minbft_view_changes_completed_total{replica="0"} 2
+# TYPE minbft_health_view gauge
+minbft_health_view{replica="0"} 2
+# TYPE minbft_health_commit_stall gauge
+minbft_health_commit_stall{replica="0"} 0
+# TYPE minbft_uptime_seconds gauge
+minbft_uptime_seconds{replica="0"} 60.0
+# TYPE minbft_verify_queue_items_total counter
+minbft_verify_queue_items_total{queue="ecdsa_p256",replica="0"} 400
+# TYPE minbft_verify_queue_batches_total counter
+minbft_verify_queue_batches_total{queue="ecdsa_p256",replica="0"} 25
+# TYPE minbft_verify_queue_device_seconds_total counter
+minbft_verify_queue_device_seconds_total{queue="ecdsa_p256",replica="0"} 1.5
+# TYPE minbft_verify_queue_depth gauge
+minbft_verify_queue_depth{queue="ecdsa_p256",replica="0"} 3
+# TYPE minbft_verify_queue_depth_peak gauge
+minbft_verify_queue_depth_peak{queue="ecdsa_p256",replica="0"} 17
+# TYPE minbft_sign_queue_depth gauge
+minbft_sign_queue_depth{queue="ecdsa_p256",replica="0"} 1
+# TYPE minbft_window_committed gauge
+minbft_window_committed{replica="0"} 2.5
+# TYPE minbft_window_loop_lag_p50_ms gauge
+minbft_window_loop_lag_p50_ms{replica="0"} 0.75
+# TYPE minbft_slo_good_total counter
+minbft_slo_good_total{replica="0"} 110
+# TYPE minbft_slo_breached_total counter
+minbft_slo_breached_total{replica="0"} 10
+# TYPE minbft_slo_target_ms gauge
+minbft_slo_target_ms{replica="0"} 250.0
+# TYPE minbft_slo_objective gauge
+minbft_slo_objective{replica="0"} 0.99
+# TYPE minbft_slo_budget_remaining gauge
+minbft_slo_budget_remaining{replica="0"} 0.25
+# TYPE minbft_slo_burn_threshold gauge
+minbft_slo_burn_threshold{replica="0"} 6.0
+# TYPE minbft_slo_burn_rate gauge
+minbft_slo_burn_rate{replica="0",window="fast"} 8.0
+minbft_slo_burn_rate{replica="0",window="slow"} 1.5
+# TYPE minbft_slo_breach_dumps_total counter
+minbft_slo_breach_dumps_total{replica="0"} 2
+""",
+    "1": """# TYPE minbft_requests_executed_total counter
+minbft_requests_executed_total{replica="1"} 118
+# TYPE minbft_health_view gauge
+minbft_health_view{replica="1"} 2
+# TYPE minbft_health_commit_stall gauge
+minbft_health_commit_stall{replica="1"} 1
+# TYPE minbft_uptime_seconds gauge
+minbft_uptime_seconds{replica="1"} 59.0
+# TYPE minbft_recovery_phase gauge
+minbft_recovery_phase{replica="1"} 2
+""",
+}
+
+
+@contextlib.contextmanager
+def _fixed_servers():
+    from minbft_tpu_torch.obs.prom import MetricsServer
+
+    servers = [MetricsServer(lambda t=t: t, host="127.0.0.1", port=0)
+               for t in _EXPO.values()]
+    try:
+        yield [f"127.0.0.1:{s.start()}" for s in servers]
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def _console(mod, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    return rc, out.getvalue()
+
+
+@pytest.mark.parametrize("flags", [[], ["--stall-flag"]], ids=["plain", "stall-flag"])
+def test_top_once_on_a_fixed_exposition_matches_the_reference(flags):
+    with _fixed_servers() as addrs:
+        port_rc, port_out = _console(cli, ["top", "--once", *flags, *addrs])
+        ref_rc, ref_out = _console(ref_cli, ["top", "--once", *flags, *addrs])
+        # and the frame function itself, on the same parsed states
+        states = {a: cli._scrape_top_state(a, 5.0) for a in addrs}
+        ref_states = {a: ref_cli._scrape_top_state(a, 5.0) for a in addrs}
+    assert (port_rc, port_out) == (ref_rc, ref_out)
+    assert port_rc == (3 if flags else 0)
+    assert "STALL" in port_out and "BREACH" in port_out and "vc=2" in port_out
+    for st in list(states.values()) + list(ref_states.values()):
+        st["mono"] = 0.0
+    assert states == ref_states
+    assert cli._top_frame(states, {"127.0.0.1:9": "down"}, {}) == \
+        ref_cli._top_frame(ref_states, {"127.0.0.1:9": "down"}, {})
+
+
+@pytest.mark.parametrize("fmt", [["--json"], []], ids=["json", "table"])
+def test_slo_on_a_fixed_exposition_matches_the_reference(fmt):
+    with _fixed_servers() as addrs:
+        port_rc, port_out = _console(cli, ["slo", *fmt, "--breach-flag", *addrs])
+        ref_rc, ref_out = _console(ref_cli, ["slo", *fmt, "--breach-flag", *addrs])
+    assert (port_rc, port_out) == (ref_rc, ref_out) and port_rc == 3
+    if fmt:
+        rep = json.loads(port_out)
+        g = rep["targets"][0]["groups"]["-"]
+        assert g["breach"] and g["good_fraction"] == round(110 / 120, 4)
+        assert rep["targets"][1]["groups"] == {}
 
 
 def test_peer_run_refuses_corrupted_store(tmp_path, capsys):

@@ -6,11 +6,13 @@ cluster (``--device cpu``: the kernels' plain versions behind the CLI)
 and a mixed cluster of reference and port replica processes.
 
 Replicas run ``--no-batch`` (serial host crypto) except in the engine
-test, so no plain kernel runs where it is not the point."""
+test, so no plain kernel runs where it is not the point; the last test
+rehearses ``chip_smoke.py``'s chaos phase with host crypto."""
 
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -23,12 +25,33 @@ MODULE = {"port": "minbft_tpu_torch.sample.peer", "ref": "minbft_tpu.sample.peer
 HEX64 = re.compile(r"^[0-9a-f]{64}$")
 
 
+def _scaffold(d, n, usig="SOFT_ECDSA", n_clients=1) -> int:
+    """``peer testnet`` into ``d`` at a free base port, which it returns."""
+    base_port = free_base_port(n)
+    res = subprocess.run(
+        [sys.executable, "-m", MODULE["port"], "testnet", "-n", str(n), "-d", d,
+         "--base-port", str(base_port), "--usig", usig, "--clients", str(n_clients)],
+        env=dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    return base_port
+
+
+@pytest.fixture(scope="module")
+def scaffold3(tmp_path_factory):
+    """One n = 3 SOFT_ECDSA scaffold for the module's three-replica port
+    clusters: each copies it into its own directory and runs on its
+    ports, one cluster after another."""
+    d = str(tmp_path_factory.mktemp("scaffold3"))
+    return d, _scaffold(d, 3)
+
+
 class _Cluster:
-    """n replica processes from a scaffold; ``packages[i]`` says which
-    package runs replica i."""
+    """n replica processes from a scaffold (made here, or a shared one
+    copied in); ``packages[i]`` says which package runs replica i."""
 
     def __init__(self, d, packages, transport="tcp", env=None, run_args=("--no-batch",),
-                 usig="SOFT_ECDSA", n_clients=1):
+                 usig="SOFT_ECDSA", n_clients=1, scaffold=None):
         self.d = d
         self.packages = packages
         self.n = len(packages)
@@ -36,13 +59,11 @@ class _Cluster:
         self.env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                         + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
                         **(env or {}))
-        self.base_port = free_base_port(self.n)
-        res = subprocess.run(
-            [sys.executable, "-m", MODULE["port"], "testnet", "-n", str(self.n), "-d", d,
-             "--base-port", str(self.base_port), "--usig", usig,
-             "--clients", str(n_clients)],
-            env=self.env, capture_output=True, text=True, timeout=120)
-        assert res.returncode == 0, res.stderr
+        if scaffold is None:
+            self.base_port = _scaffold(d, self.n, usig, n_clients)
+        else:  # a shared scaffold: (its directory, its base port)
+            shutil.copytree(scaffold[0], d, dirs_exist_ok=True)
+            self.base_port = scaffold[1]
         self.procs, self.logs = [], []
         for i, pkg in enumerate(packages):
             log = open(f"{d}/replica{i}.log", "wb")
@@ -89,13 +110,13 @@ class _Cluster:
 
 
 @pytest.mark.parametrize("transport", ["tcp", "grpc"])
-def test_three_process_cluster_commits(tmp_path, transport):
+def test_three_process_cluster_commits(tmp_path, scaffold3, transport):
     """n = 3 port processes: a request commits (over TCP the read-only
     fast path then returns height 1 and that digest), a backup stopped by
     SIGTERM exits 0 and the remaining two still commit.  No ERROR record
     until the stop (over gRPC the survivors log the stopped peer's
     failed stream at ERROR, as the reference's core does)."""
-    c = _Cluster(str(tmp_path), ["port"] * 3, transport=transport)
+    c = _Cluster(str(tmp_path), ["port"] * 3, transport=transport, scaffold=scaffold3)
     try:
         digest = c.request("process-cluster-op")
         assert HEX64.match(digest)
@@ -111,12 +132,12 @@ def test_three_process_cluster_commits(tmp_path, transport):
         c.close()
 
 
-def test_primary_crash_recovers_by_view_change(tmp_path):
+def test_primary_crash_recovers_by_view_change(tmp_path, scaffold3):
     """Kill the view-0 primary process; the next request commits in a
     later view through the view-change protocol."""
     c = _Cluster(str(tmp_path), ["port"] * 3, env={
         "CONSENSUS_TIMEOUT_REQUEST": "2s", "CONSENSUS_TIMEOUT_PREPARE": "1s",
-        "CONSENSUS_TIMEOUT_VIEWCHANGE": "5s"})
+        "CONSENSUS_TIMEOUT_VIEWCHANGE": "5s"}, scaffold=scaffold3)
     try:
         assert HEX64.match(c.request("before-primary-crash"))
         c.stop(0, kill=True)
@@ -141,6 +162,7 @@ def test_engine_cluster_on_cpu_devices_with_hmac_usig(tmp_path):
                       "CONSENSUS_TIMEOUT_PREPARE": "60s"})
     try:
         assert HEX64.match(c.request("--device", "cpu", "engine-op", timeout=240))
+        # One at a time: each survivor shuts down after its peers left.
         for i in range(4):
             assert c.stop(i) == 0, c.tails()
         for i in range(4):
@@ -185,3 +207,26 @@ def test_mixed_reference_and_port_processes_over_tcp(tmp_path):
             assert " ERROR " not in c.log(i), c.tails()
     finally:
         c.close()
+
+
+def test_smoke_chaos_phase_rehearsed_with_host_crypto():
+    """``chip_smoke.run_deployment(chaos=True)`` — the card's phase 15 — with
+    ``device=None`` (``--no-batch`` replicas and client): four replica
+    processes over TCP under ``MINBFT_CHAOS_SEED`` and the ``lossy`` plan
+    with ``--metrics-port 0`` commit every request of a ``peer bench``;
+    ``peer metrics``, ``top --once`` and ``slo --json`` read the live
+    endpoints; each replica's scraped census is non-zero and equals the
+    replay of the seed over its scraped frames; every process exits 0."""
+    import chip_smoke
+    from minbft_tpu_torch import bench
+
+    out = chip_smoke.run_deployment(bench, REPO, device=None, n_requests=160,
+                                    n_clients=4, depth=8, chaos=True)
+    assert out["requests"] == 160 and len(out["replicas"]) == 4
+    assert out["top"][0].startswith("TARGET") and len(out["top"]) >= 5
+    for row in out["replicas"]:
+        # Under the smoke's pinned seed every replica has a link whose
+        # first frame draws a fault, so a census is never empty by chance.
+        assert sum(row["census"].values()) > 0 and row["frames"] > 0
+        assert "report" not in row  # no engine without a device
+    assert out["phase_s"] < chip_smoke.CHAOS_BUDGET_S

@@ -16,6 +16,7 @@
 Inputs are made from a numpy seed; all comparisons are exact."""
 
 import asyncio
+import os
 import subprocess
 import sys
 
@@ -295,6 +296,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import minbft_tpu_torch.bench, minbft_tpu_torch.obs.ledger\n"
         "import minbft_tpu_torch.obs.timeseries, minbft_tpu_torch.utils.loop\n"
         "import minbft_tpu_torch.sample.authentication.mac\n"
+        "import minbft_tpu_torch.obs.prom, minbft_tpu_torch.testing\n"
+        "import minbft_tpu_torch.testing.adversary, minbft_tpu_torch.sample.peer.cli\n"
+        "import chip_smoke, chip_deploy_ab\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'minbft_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -303,7 +307,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "print('ok', len([m for m in sys.modules if m.startswith('minbft_tpu_torch')]))\n"
     )
     out = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")
