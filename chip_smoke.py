@@ -67,7 +67,8 @@ that does not hold:
    client, in-process transport) at n = 7, f = 3 with ECDSA-P256 client
    and replica signatures and ECDSA USIGs, one engine shared by the
    replicas and the clients, 100 clients pipelining 24 requests each,
-   10,000 requests;
+   6,000 requests (BASELINE config 3's 10,000, cut so the smoke keeps
+   inside its time);
 9. cluster B: the same layout at n = 4, f = 1 with HMAC-SHA256 USIGs
    (their certificates checked by K6), 50 clients, 4,000 requests, plus
    8 REQUESTs with a flipped signature bit injected over a client stream;
@@ -99,9 +100,9 @@ that does not hold:
    lane, then their device ms before and after their redesign;
 13. the bench entry point, ``minbft_tpu_torch.bench.main``, in-process:
    the kernel section at its default batches (32,768), then the ``mac``
-   (n = 7, 8,000 requests) and ``cfg4`` (n = 13, bucket 128, 3,000
-   requests) cluster configurations, one timed run each plus the traced
-   and SLO runs, the ``ingest`` sweep (n = 4, HMAC USIGs, bucket 128,
+   (n = 7, 4,000 requests) and ``cfg4`` (n = 13, bucket 128, 1,500
+   requests; half the bench's defaults, through its knobs) cluster
+   configurations, one timed run each plus the traced and SLO runs, the ``ingest`` sweep (n = 4, HMAC USIGs, bucket 128,
    600 requests asked, 592 of them driven in 16 equal shares, at each of
    ``ingest_off``, ``ingest8``, ``ingest64`` and ``ingest1024``) and
    ``readonly`` (4,000 fast reads from 16 clients, host crypto); each
@@ -131,7 +132,10 @@ that does not hold:
    replica's host CPU seconds per wall second, the contexts, each
    process's allocator MiB and the device memory they took together;
 15. the deployment path under chaos, with its metrics endpoint: ``peer
-   selftest --chaos-seed`` (in-process, host crypto) once, then ``testnet``
+   selftest --chaos-seed`` (in-process, its four replicas and its client
+   on one engine on cuda:0: its engine report must show K2 and K3
+   launched, ECDSA verify and sign batches, no dispatch timed out and no
+   host-signed lane) once, then ``testnet``
    (n = 4, NATIVE_ECDSA), four ``run`` processes over TCP with
    ``--metrics-port 0``, ``MINBFT_CHAOS_SEED`` pinned and
    ``MINBFT_CHAOS_PLAN=lossy``, engines on cuda:0, the reference's chaos
@@ -145,7 +149,34 @@ that does not hold:
    ``FaultNet.replay_counts`` of the seed over the scrape's per-link
    frames; it prints req/s and p50/p99 beside phase 14's clean testnet,
    each census and the scraped engine rows;
-16. one JSON line of per-kernel numbers (launches, parity, times, bounds).
+16. multi-group consensus on one engine: the bench's ``groups`` section
+   (``bench.main(["groups"])``: n = 4, HMAC USIGs, bucket 128, G = 1, 2,
+   4, 8 and 16 group cores in each replica sharing one engine and the
+   clients', ``GROUPS_SWEEP_REQUESTS`` requests a group, REQUEST and REPLY
+   signatures through K2 and K3, USIG certificates through K6), whose
+   ``groups16_verify_mean_batch`` must exceed ``groups1_verify_mean_batch``
+   (the shared queue's fill rises with G), K2, K3 and K6 launched in its
+   window and every group's ledger equal on every replica; then the
+   deployment path with ``GROUPS_DEPLOY`` groups: ``testnet --groups``
+   (n = 4, NATIVE_ECDSA), four ``run`` processes over TCP with
+   ``--metrics-port 0``, and one ``bench`` whose clients route each
+   operation to its group by key, every replica scraped
+   until it has executed every request (each group's label present, one
+   set of engine families), then SIGTERM: every replica's ledgers line
+   (each group's length and state digest) equal to the others', K2 and K3
+   launched, no dispatch timed out, no ERROR record; it prints each
+   point's req/s, p50/p99 and mean batches;
+17. the open-loop load harness: ``python -m minbft_tpu_torch.sample.peer
+   load`` as a user runs it (its default 1,000 clients over 16 sockets,
+   n = 4, pairwise MACs, HMAC USIGs, ``LOAD_RATE`` arrivals/s for
+   ``LOAD_DURATION_S`` s, its engine on cuda:0), at 1 and at 4 groups,
+   each exiting 0 with its fired census equal to the seed's replay, K6
+   launched in its process and no ERROR record; then the bench's ``load``
+   section (``bench.main(["load"])``, ``LOAD_BENCH_REQUESTS`` requests a
+   point: the saturation probe and the half, sat and over points), every
+   census the seed's replay and K6 launched in its window; it prints the
+   offered rate, goodput, p50/p99, shed and BUSY counts;
+18. one JSON line of per-kernel numbers (launches, parity, times, bounds).
 
 Each phase's start is printed with the seconds since the smoke began.
 Kernel times are CUDA-event medians: ``ms`` brackets one wrapper call
@@ -261,7 +292,7 @@ SHA_BEFORE_MS = {
 }
 K4_BEFORE_MS = {"K4": {512: 1.549, 16384: 1.915}}
 # Requests of cluster phase A (the main path, n = 7).
-CLUSTER_A_REQUESTS = 10_000
+CLUSTER_A_REQUESTS = 6_000
 # Requests of cluster phase C (BASELINE config 5, n = 31).  Config 5
 # names a sustained 100k-request stream; this is a burst of two windows
 # of the 1,200 requests in flight (50 clients x 24), so its requests/s is
@@ -270,11 +301,11 @@ CLUSTER_C_REQUESTS = 2_400
 # How long each cluster request may take before its phase fails.
 REQUEST_TIMEOUT_S = 120.0
 # Phase 13: the bench's sections that the smoke runs (the kernel section
-# at its default batches, and two cluster configurations at the bench's
-# default lengths, one timed run each); the other configurations' paths
-# are clusters A-C's.
+# at its default batches, and two cluster configurations at half the
+# bench's default lengths, one timed run each); the other configurations'
+# paths are clusters A-C's.
 BENCH_SECTIONS = ("kernels", "mac", "cfg4", "ingest", "readonly")
-BENCH_REQUESTS = {"mac": 8000, "cfg4": 3000}
+BENCH_REQUESTS = {"mac": 4000, "cfg4": 1500}
 # The ingest sweep's points and requests a point, the read-only section's
 # reads and clients (the reference's defaults off the CPU).
 INGEST_PREFIXES = ("ingest_off", "ingest8", "ingest64", "ingest1024")
@@ -282,6 +313,15 @@ INGEST_REQUESTS = 600
 # Each of the sweep's 16 clients drives an equal share: 37 of the 600.
 INGEST_COMMITTED = INGEST_REQUESTS // 16 * 16
 RO_READS, RO_CLIENTS = 4000, 16
+
+
+# DeviceLedger.util_keys' suffixes (obs/ledger.py), as the reference's.
+UTIL_SUFFIXES = {
+    "util_busy", "util_fill", "util_useful", "util_effective_per_sec",
+    "util_per_device_per_sec", "util_ceiling_per_sec", "util_ceiling_source",
+    "util_idle_s", "util_lanes_useful", "util_lanes_padding", "util_lanes_memo",
+    "util_lanes_fallback",
+}
 
 
 def bench_expected_keys(section: str) -> set:
@@ -311,6 +351,25 @@ def bench_expected_keys(section: str) -> set:
             "req_per_sec_at_p50_500ms", "slo_depth", "slo_achieved_p50_ms",
             "slo_achieved_p99_ms"}
         return {f"{p}_{s}" for p in INGEST_PREFIXES for s in once}
+    if section == "groups":
+        # _bench_groups_cluster's and bench_groups' keys at every G (the
+        # saturation timeline only when the sampler ticked in the run).
+        per = {"n", "f", "requests", "clients", "committed_req_per_sec",
+               "request_latency_p50_ms", "verify_mean_batch", "verify_batches",
+               "device_verifies_per_sec", "queue_depth_peak", "req_per_sec_runs",
+               "req_per_sec_mean", "req_per_sec_stddev"} | UTIL_SUFFIXES
+        return {f"groups{G}_{s}" for G in (1, 2, 4, 8, 16) for s in per} | {
+            "groups_sweep_Gs", "groups_sweep_per_group_requests"}
+    if section == "load":
+        per = {"offered_per_sec", "goodput_per_sec", "p50_ms", "p99_ms", "send_p99_ms",
+               "finality_p99_ms", "slo_good_fraction", "timeouts", "census_ok",
+               "busy_received", "shed", "busy_sent", "rx_peak"}
+        return {f"load_{t}_{s}" for t in ("half", "sat", "over") for s in per} | {
+            "load_seed", "load_clients", "load_requests_per_point",
+            "load_burst_peak_per_sec", "load_probe_offered_per_sec",
+            "load_probe_census_ok", "load_probe_goodput_per_sec", "load_probe_shed",
+            "load_probe_busy_sent", "load_probe_busy_received", "load_probe_timeouts",
+            "load_probe_rx_peak", "load_peak_per_sec", "load_over_goodput_fraction"}
     if section in ("mp", "mptcp"):
         # _bench_mp_cluster's keys and _bench_mp_repeated's.
         suffixes = {
@@ -329,12 +388,8 @@ def bench_expected_keys(section: str) -> set:
         "device_verifies_per_sec", "logical_verifies", "memo_hits",
         "hmac_sha256_prep_share", "queue_depth_peak", "timeline", "req_per_sec_runs",
         "req_per_sec_mean", "req_per_sec_stddev", "req_per_sec_at_p50_500ms",
-        "slo_depth", "slo_achieved_p50_ms", "slo_achieved_p99_ms", "util_busy",
-        "util_fill", "util_useful", "util_effective_per_sec", "util_per_device_per_sec",
-        "util_ceiling_per_sec", "util_ceiling_source", "util_idle_s",
-        "util_lanes_useful", "util_lanes_padding", "util_lanes_memo",
-        "util_lanes_fallback",
-    }
+        "slo_depth", "slo_achieved_p50_ms", "slo_achieved_p99_ms",
+    } | UTIL_SUFFIXES
     if section != "mac":  # signatures: the ECDSA verify and sign queues
         suffixes |= {"ecdsa_p256_prep_share", "device_signs_per_sec", "sign_share",
                      "sign_fallback_items", "queue_signs", "sign_prep_share"}
@@ -1179,6 +1234,111 @@ CHAOS_TIMEOUTS = {"CONSENSUS_TIMEOUT_REQUEST": "60s",
                   "CONSENSUS_TIMEOUT_PREPARE": "30s"}
 
 
+# Phase 16: multi-group consensus.  The bench's groups sweep at this many
+# requests a group (the reference's default: 400), then the deployment
+# path with this many groups in every replica process and this many
+# requests across them.
+GROUPS_SWEEP_REQUESTS = 120
+GROUPS_DEPLOY = 4
+GROUPS_REQUESTS = 1000
+GROUPS_BUDGET_S = 240.0
+
+
+# Phase 17: the open-loop load harness.  ``peer load`` at its default
+# 1,000 clients, at this offered rate for this long, once per group
+# count; then the bench's load section at this many requests a point.
+LOAD_RATE = 200.0
+LOAD_DURATION_S = 5.0
+LOAD_GROUPS = (1, 4)
+LOAD_BENCH_REQUESTS = 400
+LOAD_TIMEOUT_S = 240.0
+
+
+def executed_by_group(fams: dict) -> dict:
+    """{group label: requests executed} from one grouped scrape."""
+    fam = fams.get("minbft_requests_executed_total")
+    return {dict(k).get("group"): int(v) for k, v in (fam["samples"] if fam else {}).items()}
+
+
+def settle_grouped(addrs: list, n_groups: int, total: int, left,
+                   engine: bool = True) -> list:
+    """Scrape every replica of a grouped deployment until each one has
+    executed ``total`` requests across its groups and the groups agree
+    across replicas (the clients finish on f + 1 replies, so a replica may
+    still be executing), then check the last scrape of each: every
+    group's label on the protocol families, the stale-group gauge for
+    every group, and exactly one set of engine families (no group label,
+    each queue once; none without an ``engine``).  Returns each replica's
+    executed count by group."""
+    from minbft_tpu_torch.obs.prom import parse_exposition, scrape
+
+    while True:
+        scrapes = [parse_exposition(scrape(a, timeout=10)) for a in addrs]
+        per = [executed_by_group(f) for f in scrapes]
+        if all(sum(p.values()) == total for p in per) and all(p == per[0] for p in per):
+            break
+        check(left() > 5, f"groups: executed by group {per}, want {total} on each")
+        time.sleep(0.5)
+    labels = {str(g) for g in range(n_groups)}
+    for i, fams in enumerate(scrapes):
+        check(set(per[i]) == labels, f"groups replica {i}: group labels {sorted(per[i])}")
+        stale = fams.get("minbft_health_stale_group")
+        check(stale is not None and {dict(k)["group"] for k in stale["samples"]} == labels,
+              f"groups replica {i}: stale-group gauge {stale and stale['samples']}")
+        for side in ("verify", "sign"):
+            fam = fams.get(f"minbft_{side}_queue_items_total")
+            keys = [dict(k) for k in (fam["samples"] if fam else {})]
+            check(bool(keys) == engine and all("group" not in k for k in keys)
+                  and len(keys) == len({k["queue"] for k in keys}),
+                  f"groups replica {i}: engine family {side} samples {keys}")
+    return per
+
+
+def run_peer_load(repo: str, n_groups: int, device: "str | None" = "cuda:0",
+                  rate: float = LOAD_RATE, duration: float = LOAD_DURATION_S,
+                  clients: "int | None" = None) -> dict:
+    """``python -m minbft_tpu_torch.sample.peer load`` as a user runs it
+    (its default 1,000 clients unless ``clients``), at ``rate`` for
+    ``duration`` seconds with ``n_groups`` groups, its engine on
+    ``device`` (None: ``--no-batch``, host crypto, a CPU rehearsal).  It
+    must exit 0 with a fired census equal to the seed's replay, log no
+    ERROR record and, with a device, report its engine there with HMAC
+    batches, K6 launched (on the card) and no dispatch timed out.
+    Returns its JSON report."""
+    peer = [sys.executable, "-m", "minbft_tpu_torch.sample.peer", "load"]
+    args = ["--rate", str(rate), "--duration", str(duration), "--groups", str(n_groups),
+            *(["--clients", str(clients)] if clients else []),
+            *(["--device", device] if device else ["--no-batch"])]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    res = subprocess.run(peer + args, env=env, capture_output=True, text=True,
+                         timeout=LOAD_TIMEOUT_S)
+    label = f"peer load --groups {n_groups}"
+    check(res.returncode == 0, f"{label}: rc {res.returncode}: {res.stderr[-800:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    check(report["census_ok"], f"{label}: census {report['census']} is not the seed's replay")
+    errs = [ln for ln in res.stderr.splitlines() if " ERROR " in ln]
+    check(not errs, f"{label} logged ERROR: {errs[:3]}")
+    if device:
+        eng = report["engine"]
+        timeouts = sum(q["dispatch_timeouts"] for side in ("verify", "sign")
+                       for q in eng[side].values())
+        check(eng["device"] == device and eng["verify"].get("hmac_sha256", {}).get("batches")
+              and not timeouts and (eng["launches"]["K6"] > 0 or not device.startswith("cuda")),
+              f"{label}: engine report {eng}")
+    report["process_s"] = time.time() - t0
+    return report
+
+
+def ledger_lines(text: str) -> list:
+    """The ``replica <id> ledgers [...]`` line a replica prints at a clean
+    stop: each group's length and state digest."""
+    for line in text.splitlines():
+        if line.startswith("replica ") and " ledgers [" in line:
+            return json.loads(line.split(" ledgers ", 1)[1])
+    fail("no ledgers line in a replica log")
+
+
 def metrics_port(log_path: str, timeout: float) -> int:
     """The port a ``peer run --metrics-port 0`` replica announced on its
     stderr log (the reference's recovery soak reads it the same way)."""
@@ -1299,7 +1459,8 @@ def check_chaos_replica(i: int, fams: dict, census: dict, rep, replay, fault_pla
 def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
                    n_requests: int = DEPLOY_REQUESTS,
                    n_clients: int = DEPLOY_CLIENTS,
-                   depth: int = DEPLOY_DEPTH, chaos: bool = False) -> dict:
+                   depth: int = DEPLOY_DEPTH, chaos: bool = False,
+                   groups: int = 1) -> dict:
     """``peer testnet`` (n = 4, NATIVE_ECDSA USIGs), four ``peer run``
     processes over TCP with their engines on ``device`` (None:
     ``--no-batch``, host crypto, a CPU rehearsal) and the trace dump on,
@@ -1314,16 +1475,26 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
     ``MINBFT_CHAOS_PLAN`` = ``CHAOS_PLAN`` (each replica's outbound links
     go through the seeded fault-injection network), and before SIGTERM
     :func:`probe_live_replicas` reads them; each replica must then pass
-    :func:`check_chaos_replica`.  Everything runs inside
-    ``CHAOS_BUDGET_S`` (``DEPLOY_BUDGET_S`` without chaos)."""
+    :func:`check_chaos_replica`.
+
+    With ``groups`` > 1 the scaffold declares that many consensus groups,
+    every replica process hosts them all over its one engine and serves
+    ``--metrics-port 0``, there is no ``peer request``, and the bench
+    routes each operation to its group; before SIGTERM :func:`settle_grouped` waits
+    for every replica to execute every request and checks each scrape,
+    and after it every replica's ledgers line must equal the others'
+    (each group's length and state digest).  Everything runs inside
+    ``CHAOS_BUDGET_S`` (``GROUPS_BUDGET_S`` with groups,
+    ``DEPLOY_BUDGET_S`` otherwise)."""
     import shutil
     import tempfile
 
     import yaml
 
     t_phase = time.time()
-    budget = CHAOS_BUDGET_S if chaos else DEPLOY_BUDGET_S
-    label = "chaos" if chaos else "deploy"
+    grouped = groups > 1
+    budget = CHAOS_BUDGET_S if chaos else GROUPS_BUDGET_S if grouped else DEPLOY_BUDGET_S
+    label = "chaos" if chaos else "groups" if grouped else "deploy"
     d = tempfile.mkdtemp(prefix=f"minbft-smoke-{label}.")
     base_port = bench._free_base_port(DEPLOY_N)
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
@@ -1333,7 +1504,7 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
                        MINBFT_CHAOS_PLAN=CHAOS_PLAN) if chaos else env
     peer = ["-m", "minbft_tpu_torch.sample.peer"]
     dev_args = ["--device", device] if device else ["--no-batch"]
-    run_args = [*dev_args, "--metrics-port", "0"] if chaos else dev_args
+    run_args = [*dev_args, "--metrics-port", "0"] if chaos or grouped else dev_args
     on_card = bool(device) and device.startswith("cuda")
     procs: list = []
     logs: list = []
@@ -1351,7 +1522,8 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
         baseline_mib = bench.gpu_memory_used_mib() if on_card else 0.0
         res = subprocess.run(
             [sys.executable, *peer, "testnet", "-n", str(DEPLOY_N), "--usig", "NATIVE_ECDSA",
-             "--clients", str(n_clients), "-d", d, "--base-port", str(base_port)],
+             "--clients", str(n_clients), "-d", d, "--base-port", str(base_port),
+             "--groups", str(groups)],
             env=env, capture_output=True, text=True, timeout=left())
         check(res.returncode == 0, f"{label} testnet: rc {res.returncode}: {res.stderr[-500:]}")
         with open(f"{d}/keys.yaml") as fh:
@@ -1369,15 +1541,16 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
         check(bench._wait_ports([base_port + i for i in range(DEPLOY_N)], timeout=left()),
               f"{label}: replicas never bound their ports")
         start_s = time.time() - t0
-        if chaos:
+        if chaos or grouped:
             addrs = [f"127.0.0.1:{metrics_port(f'{d}/replica{i}.log', left())}"
                      for i in range(DEPLOY_N)]
+        if chaos:
             for i in range(DEPLOY_N):
                 with open(f"{d}/replica{i}.log", errors="replace") as fh:
                     check(f"chaos: seed={CHAOS_SEED:#x} plan={CHAOS_PLAN}" in fh.read(),
                           f"chaos: replica {i} did not announce the chaos wrap")
         client = [*peer, "--keys", f"{d}/keys.yaml", *common]
-        if not chaos:
+        if not chaos and not grouped:
             res = run_cli("--keys", f"{d}/keys.yaml", *common, "request", "--timeout", "120",
                           *dev_args, "smoke-deploy-op")
             out = res.stdout.strip()
@@ -1416,6 +1589,9 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
             check(not faults, f"{label} peer bench (client process): {'; '.join(faults)}")
         cpu = sampler.cpu_per_wall(t_end - report["seconds"], t_end)
         probe = probe_live_replicas(run_cli, addrs, left) if chaos else {}
+        # Every request and the bench's warmup into each group.
+        executed = (settle_grouped(addrs, groups, n_requests + groups, left,
+                                   engine=bool(device)) if grouped else [])
         for p in procs[:DEPLOY_N]:
             p.terminate()
         for i, p in enumerate(procs[:DEPLOY_N]):
@@ -1430,12 +1606,17 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
             fault_plan = plan_from_spec(CHAOS_PLAN)
             replay = FaultNet(seed=CHAOS_SEED, default_plan=fault_plan)
         launches = dict(report["engine"]["launches"]) if device else {}
-        dumps, replicas = [], []
+        dumps, replicas, ledgers = [], [], []
         for i in range(DEPLOY_N):
             with open(f"{d}/replica{i}.log", errors="replace") as fh:
                 text = fh.read()
             errs = [ln for ln in text.splitlines() if " ERROR " in ln]
             check(not errs, f"{label} peer run {i} logged ERROR: {errs[:3]}")
+            if grouped:
+                ledgers.append(ledger_lines(text))
+                check(ledgers[-1] == ledgers[0] and len(ledgers[0]) == groups
+                      and sum(g["length"] for g in ledgers[0]) == n_requests + groups,
+                      f"groups replica {i} ledgers {ledgers[-1]} != replica 0's {ledgers[0]}")
             rep = None
             if device:
                 with open(f"{d}/trace.engine{i}.json") as fh:
@@ -1466,6 +1647,7 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
             "start_s": start_s, "launches": launches, "engines": dumps,
             "replicas": replicas, "top": probe.get("top", []),
             "merged_items": probe.get("merged_items", 0),
+            "executed_by_group": executed, "ledgers": ledgers[:1],
             "phase_s": time.time() - t_phase,
         }
     finally:
@@ -2316,6 +2498,8 @@ def main() -> int:
     os.environ["MINBFT_BENCH_RUNS"] = "1"
     for knob in ("MINBFT_BENCH_INGEST_REQUESTS", "MINBFT_BENCH_RO_READS"):
         os.environ.pop(knob, None)
+    for section, n_req in BENCH_REQUESTS.items():
+        os.environ[f"MINBFT_BENCH_{section.upper()}_REQUESTS"] = str(n_req)
     extras_path = os.path.join(bench.OUT_DIR, "extras.json")
     for section in BENCH_SECTIONS:
         path = f"bench_{section}"
@@ -2487,13 +2671,23 @@ def main() -> int:
     # -- phase 15: the deployment path under chaos, with the metrics endpoint -----
     res = subprocess.run(
         [sys.executable, "-m", "minbft_tpu_torch.sample.peer", "selftest",
-         "--chaos-seed", hex(CHAOS_SEED), "--chaos-profile", CHAOS_PLAN],
+         "--chaos-seed", hex(CHAOS_SEED), "--chaos-profile", CHAOS_PLAN,
+         "--device", "cuda:0"],
         env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")),
         capture_output=True, text=True, timeout=300)
     lines = [ln for ln in res.stderr.splitlines() if ln.startswith("chaos ")]
     check(res.returncode == 0 and len(lines) == 3 and "invariants green" in lines[2],
           f"peer selftest --chaos-seed: rc {res.returncode}: {res.stderr[-800:]}")
-    print(f"selftest_chaos (in-process, host crypto): {lines[1]}; {lines[2]}")
+    st_rep = [json.loads(ln.split(" engine ", 1)[1]) for ln in res.stderr.splitlines()
+              if ln.startswith("selftest engine ")]
+    check(len(st_rep) == 1, f"peer selftest: no engine report: {res.stderr[-500:]}")
+    faults = bench.engine_faults(st_rep[0], "cuda:0")
+    check(not faults, f"peer selftest --chaos-seed: {'; '.join(faults)}")
+    counts = {kid: 0 for kid in wrappers}
+    counts.update({k: v for k, v in st_rep[0]["launches"].items() if k in counts})
+    path_launches["selftest_chaos"] = counts
+    print(f"selftest_chaos (in-process, one engine on cuda:0): {lines[1]}; {lines[2]}; "
+          f"launches {counts}")
     chaos = run_deployment(bench, repo, n_requests=CHAOS_REQUESTS, chaos=True)
     counts = {kid: 0 for kid in wrappers}
     counts.update({k: v for k, v in chaos["launches"].items() if k in counts})
@@ -2517,7 +2711,131 @@ def main() -> int:
         print(f"  {ln}")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 16")
-    # -- phase 16 ----------------------------------------------------------------
+    # -- phase 16: multi-group consensus on one engine ---------------------------
+    os.environ["MINBFT_BENCH_GROUPS_REQUESTS"] = str(GROUPS_SWEEP_REQUESTS)
+    os.environ.pop("MINBFT_BENCH_GROUPS_RUNS", None)
+    out = io.StringIO()
+    with _ErrorRecords() as errors:
+        reset_counts()
+        # The bench's groups section: every count moves only from here ...
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = bench.main(["groups"])
+        except Exception as e:  # the bench's own failure, reported
+            fail(f"bench_groups: {type(e).__name__}: {e}")
+        # ... to here.
+        win = read_counts()
+    path_launches["bench_groups"] = win
+    check(rc == 0, f"bench_groups: exit code {rc}")
+    check(not errors, f"bench_groups: ERROR records {errors[:5]}")
+    with open(os.path.join(bench.OUT_DIR, "extras.json")) as fh:
+        extras = json.load(fh)
+    missing = sorted(bench_expected_keys("groups") - set(extras))
+    check(not missing, f"bench_groups: keys missing {missing}")
+    check(all(win[k] > 0 for k in ("K2", "K3", "K6")),
+          f"bench_groups: a kernel of the path was not launched {win}")
+    for G in extras["groups_sweep_Gs"]:
+        p = f"groups{G}"
+        check(extras[f"{p}_dispatch_timeouts"] == 0, f"bench_groups {p}: dispatch timeouts")
+        print(f"bench_groups {p}: n=4, HMAC USIG, bucket 128, {G} groups x "
+              f"{GROUPS_SWEEP_REQUESTS} requests ({extras[f'{p}_requests']} driven), "
+              f"committed {extras[f'{p}_committed_req_per_sec']} req/s, latency p50 "
+              f"{extras[f'{p}_request_latency_p50_ms']} ms p99 "
+              f"{extras[f'{p}_request_latency_p99_ms']} ms; USIG queue (K6) mean batch "
+              f"{extras[f'{p}_verify_mean_batch']} over {extras[f'{p}_verify_batches']} "
+              f"batches, signature queue (K2) mean batch {extras[f'{p}_sig_mean_batch']}; "
+              f"util busy {extras[f'{p}_util_busy']} fill {extras[f'{p}_util_fill']}")
+    check(extras["groups16_verify_mean_batch"] > extras["groups1_verify_mean_batch"],
+          f"bench_groups: the shared queue's fill did not rise with G: "
+          f"{extras['groups1_verify_mean_batch']} at G=1, "
+          f"{extras['groups16_verify_mean_batch']} at G=16")
+    print(f"bench_groups: launches {win}")
+    grp = run_deployment(bench, repo, n_requests=GROUPS_REQUESTS, groups=GROUPS_DEPLOY)
+    counts = {kid: 0 for kid in wrappers}
+    counts.update({k: v for k, v in grp["launches"].items() if k in counts})
+    check(counts["K2"] > 0 and counts["K3"] > 0, f"groups_tcp: launches {counts}")
+    path_launches["groups_tcp"] = counts
+    print(f"groups_tcp (n={DEPLOY_N}, NATIVE_ECDSA, TCP, {GROUPS_DEPLOY} groups in each of "
+          f"{DEPLOY_N} replica processes, one client process routing by key, "
+          f"--metrics-port 0, engines on cuda:0): {grp['requests']} requests in "
+          f"{grp['seconds']} s, committed {grp['req_per_sec']} req/s, latency p50 "
+          f"{grp['p50_ms']} ms p99 {grp['p99_ms']} ms; executed by group (every replica "
+          f"alike) {grp['executed_by_group'][0]}; phase {grp['phase_s']:.1f} s of its "
+          f"{GROUPS_BUDGET_S:.0f} s budget; launches {counts}")
+    print(f"groups_tcp ledgers (every replica's equal): "
+          f"{[(g['group'], g['length'], g['digest'][:16]) for g in grp['ledgers'][0]]}")
+    for i, rep in enumerate(grp["engines"]):
+        print(f"groups_tcp replica {i} engine: verify "
+              f"{ {k: (q['items'], q['batches']) for k, q in rep['verify'].items()} } "
+              f"sign { {k: (q['items'], q['batches']) for k, q in rep['sign'].items()} } "
+              f"(items, batches); launches {rep['launches']}")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 17")
+    # -- phase 17: the open-loop load harness -------------------------------------
+    for n_groups in LOAD_GROUPS:
+        path = f"load_g{n_groups}"
+        rep = run_peer_load(repo, n_groups)
+        counts = {kid: 0 for kid in wrappers}
+        counts.update({k: v for k, v in rep["engine"]["launches"].items() if k in counts})
+        path_launches[path] = counts
+        cl = rep["cluster"]
+        hq = rep["engine"]["verify"]["hmac_sha256"]
+        print(f"{path} (peer load: n=4, MACs, HMAC USIG, {rep['n_clients']} clients over "
+              f"{rep['pool_connections']} sockets, {n_groups} groups, one engine on cuda:0): "
+              f"offered {rep['offered_per_sec']}/s for {rep['duration_s']} s, "
+              f"{rep['arrivals']} arrivals, goodput {rep['goodput_per_sec']}/s "
+              f"(sustained {rep['sustained_per_sec']}/s), latency from the scheduled "
+              f"arrival p50 {rep['p50_ms']} ms p99 {rep['p99_ms']} ms (from the send p99 "
+              f"{rep['send_p99_ms']} ms), timeouts {rep['timeouts']}, shed "
+              f"{cl['admission_shed']}, busy sent {cl['admission_busy_sent']} received "
+              f"{rep['busy_received']}; census = the seed's replay; HMAC queue (K6) "
+              f"{hq['items']} items in {hq['batches']} batches; process "
+              f"{rep['process_s']:.1f} s; launches {counts}")
+    os.environ["MINBFT_LOAD_REQUESTS"] = str(LOAD_BENCH_REQUESTS)
+    for knob in ("MINBFT_LOAD_SEED", "MINBFT_LOAD_CLIENTS", "MINBFT_LOAD_PROBE_RATE"):
+        os.environ.pop(knob, None)
+    out = io.StringIO()
+    with _ErrorRecords() as errors:
+        reset_counts()
+        # The bench's load section: every count moves only from here ...
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = bench.main(["load"])
+        except Exception as e:  # the bench's own failure, reported
+            fail(f"bench_load: {type(e).__name__}: {e}")
+        # ... to here.
+        win = read_counts()
+    path_launches["bench_load"] = win
+    check(rc == 0, f"bench_load: exit code {rc}")
+    check(not errors, f"bench_load: ERROR records {errors[:5]}")
+    with open(os.path.join(bench.OUT_DIR, "extras.json")) as fh:
+        extras = json.load(fh)
+    missing = sorted(bench_expected_keys("load") - set(extras))
+    check(not missing, f"bench_load: keys missing {missing}")
+    check(win["K6"] > 0, f"bench_load: K6 was not launched {win}")
+    check(extras["load_probe_census_ok"] and all(
+        extras[f"load_{t}_census_ok"] for t in ("half", "sat", "over")),
+        "bench_load: a census is not the seed's replay")
+    check(all(extras[f"load_{t}_dispatch_timeouts"] == 0
+              for t in ("probe", "half", "sat", "over")), "bench_load: dispatch timeouts")
+    print(f"bench_load probe: offered {extras['load_probe_offered_per_sec']}/s, burst peak "
+          f"{extras['load_burst_peak_per_sec']}/s, shed {extras['load_probe_shed']}, busy "
+          f"sent {extras['load_probe_busy_sent']} received "
+          f"{extras['load_probe_busy_received']}, timeouts {extras['load_probe_timeouts']}, "
+          f"rx peak {extras['load_probe_rx_peak']}; HMAC queue mean batch "
+          f"{extras['load_probe_verify_mean_batch']}")
+    for t in ("half", "sat", "over"):
+        print(f"bench_load {t}: offered {extras[f'load_{t}_offered_per_sec']}/s, goodput "
+              f"{extras[f'load_{t}_goodput_per_sec']}/s, p50 {extras[f'load_{t}_p50_ms']} "
+              f"ms p99 {extras[f'load_{t}_p99_ms']} ms, timeouts "
+              f"{extras[f'load_{t}_timeouts']}, shed {extras[f'load_{t}_shed']}, busy "
+              f"received {extras[f'load_{t}_busy_received']}; HMAC queue mean batch "
+              f"{extras[f'load_{t}_verify_mean_batch']}")
+    print(f"bench_load: peak {extras['load_peak_per_sec']}/s, 2x goodput fraction "
+          f"{extras.get('load_over_goodput_fraction')}; launches {win}")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 18")
+    # -- phase 18 ----------------------------------------------------------------
     meta = {
         "K1": ("field_op (csrc/field.cuh, p256_field.cuh and ed25519_field.cuh libraries)",
                "minbft_tpu_torch/csrc/field.cuh", "minbft_tpu/ops/limbs.py:335"),

@@ -13,6 +13,7 @@ the replica core (:mod:`.core`), client (:mod:`.client`) and in-process
 transport (:mod:`.sample.conn.inprocess`), and the deployment path: the
 TCP and gRPC transports, the native USIG (:mod:`.usig.native`), the
 keystore, and the ``peer`` CLI (:mod:`.sample.peer`), one process per
-replica.  Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``.
+replica; multi-group consensus on one engine (:mod:`.groups`) and the
+open-loop load harness (:mod:`.loadgen`).  Entry points run on ``cuda:0``
+unless the caller passes ``device="cpu"``.
 """

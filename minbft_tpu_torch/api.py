@@ -305,3 +305,14 @@ class Replica(abc.ABC):
     @abc.abstractmethod
     async def stop(self) -> None:
         """Stop background tasks."""
+
+
+class NotPortedError(SystemExit):
+    """An option of the reference whose module the port does not have yet
+    (exits non-zero, naming the ROADMAP.md item that will bring it)."""
+
+    def __init__(self, what: str, item: str):
+        super().__init__(
+            f"peer: {what} is not supported by the port yet "
+            f"(ROADMAP.md queue 1 item {item})"
+        )

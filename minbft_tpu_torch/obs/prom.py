@@ -14,8 +14,8 @@ lock a scrape takes is the engine's stats lock, which the dispatcher
 threads hold only for a few counter updates.
 
 Left out here: ``collect_engine_pool`` (the multi-GPU engine pool,
-``parallel/pool.py``) and ``collect_group_runtime`` (``groups/``) come
-with those modules.
+``parallel/pool.py``) comes with that module; until then
+:func:`collect_group_runtime` has no ``engine_pool`` branch.
 """
 
 from __future__ import annotations
@@ -550,6 +550,79 @@ def merge_family_lists(lists: Iterable[List[Family]]) -> List[Family]:
         (name, merged[name][0], merged[name][1], merged[name][2])
         for name in order
     ]
+
+
+def collect_group_runtime(runtime, engine=None, replica_id=None,
+                          timeseries=None, slo_spool=None) -> List[Family]:
+    """Families for a :class:`minbft_tpu_torch.groups.GroupRuntime`: one
+    ``collect_replica`` per group core (every series carries its
+    ``group`` label), the shared engine's families once (its queues
+    really are shared — splitting them per group would double-count).
+    The time-series rings and the stale-group health gauge are
+    process-level and likewise emitted once.  The reference's
+    ``engine_pool`` branch (the ``minbft_engine_pool_*`` per-chip
+    families) waits for the port's engine pool."""
+    n_groups = len(runtime.cores)
+    lists = [
+        collect_replica(
+            metrics=core.metrics,
+            recorder=core.handlers.trace,
+            replica_id=replica_id,
+            group=core.group,
+            groups=n_groups,
+        )
+        for core in runtime.cores
+    ]
+    if engine is not None:
+        lists.append(collect_replica(engine=engine, replica_id=replica_id))
+    if timeseries is not None:
+        lists.append(
+            collect_replica(timeseries=timeseries, replica_id=replica_id)
+        )
+    # One collect_slo across every core's ledger: the per-group burn
+    # rates all read the ONE process-level ring (series are per-group
+    # suffixed), and the spool counters are process-level.
+    slo_ledgers = [
+        core.handlers.slo for core in runtime.cores
+        if getattr(core.handlers, "slo", None) is not None
+    ]
+    if slo_ledgers:
+        base = {} if replica_id is None else {"replica": str(replica_id)}
+        lists.append(
+            collect_slo(
+                slo_ledgers, timeseries=timeseries, spool=slo_spool,
+                base=base,
+            )
+        )
+    # One collect_recovery across every core's manager: each carries its
+    # own group label (like the SLO ledgers).
+    recovery_managers = [
+        core.recovery for core in runtime.cores
+        if getattr(core, "recovery", None) is not None
+    ]
+    if recovery_managers:
+        base = {} if replica_id is None else {"replica": str(replica_id)}
+        lists.append(collect_recovery(recovery_managers, base=base))
+    fams = merge_family_lists(lists)
+    stale_fn = getattr(runtime, "stale_groups", None)
+    if stale_fn is not None:
+        base = {} if replica_id is None else {"replica": str(replica_id)}
+        stale = stale_fn()
+        fams.append(
+            (
+                "minbft_health_stale_group",
+                "gauge",
+                "1 when this group core has made no progress while a "
+                "sibling group on the same process has (stale-group "
+                "detector, groups/runtime.py)",
+                [
+                    ({**base, "group": str(core.group)},
+                     1 if core.group in stale else 0)
+                    for core in runtime.cores
+                ],
+            )
+        )
+    return fams
 
 
 def collect_faultnet(census, base: Optional[Dict[str, str]] = None) -> List[Family]:

@@ -546,7 +546,7 @@ class BatchVerifier:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-GPU engines (mesh=) are not ported yet: ROADMAP.md "
-                "queue 1 item 10"
+                "queue 1 item 7"
             )
         self.device = backend.resolve_device(device)
         if self.device.type == "cuda" and sign_on_device is False:

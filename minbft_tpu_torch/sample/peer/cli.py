@@ -16,8 +16,11 @@ over ``PEER_*`` environment variables (root.go:73-82) and a per-node
     python -m minbft_tpu_torch.sample.peer ... request "op"
     python -m minbft_tpu_torch.sample.peer ... bench --clients 20 --depth 24
     python -m minbft_tpu_torch.sample.peer selftest   # in-process n=4 smoke test
+    python -m minbft_tpu_torch.sample.peer load --rate 200 --duration 5
+    python -m minbft_tpu_torch.sample.peer testnet -n 4 -d net/ --groups 4
 
-Device rule (``run``, ``request`` and ``bench``): each process owns one
+Device rule (``run``, ``request``, ``bench``, ``selftest`` and ``load``):
+each process owns one
 :class:`~minbft_tpu_torch.parallel.BatchVerifier` on ``--device``
 (default ``cuda:0``), which checks every signature, MAC and USIG
 certificate on the card (K2, K6) and makes the process's own
@@ -42,10 +45,21 @@ network (``testing/faultnet.py``), and ``selftest --chaos-seed/
     python -m minbft_tpu_torch.sample.peer metrics 127.0.0.1:9464 127.0.0.1:9465
     python -m minbft_tpu_torch.sample.peer top --once 127.0.0.1:9464
 
-Options whose modules are not ported yet exit non-zero naming the
-ROADMAP.md item that will lift them: ``--groups`` above 1 (item 6,
-``groups/``), ``--chips`` other than 1 (item 7, ``parallel/pool.py``);
-the subcommand ``load`` (item 8, ``loadgen/``) is not parsed.
+Multi-group consensus (``groups/``): a config with ``protocol.groups``
+G > 1 (``testnet --groups G``), or ``run --groups G``, hosts G group cores
+in each replica process over one listener and the ONE engine, so every
+group's checks coalesce into its batches; ``request`` and ``bench``
+route each operation to its group by the hash of its bytes
+(``MultiGroupClient``; ``request --group g`` pins one), and ``run
+--metrics-port`` labels each group's series.  ``load`` (``loadgen/``)
+runs a seeded open-loop schedule against a self-contained local cluster
+whose replicas share one engine on ``--device``, and prints one JSON
+report line; its exit code is 0 only when the fired census equals the
+seed's replay (and any ``--expect-goodput`` / ``--slo-target-ms`` bar is
+met).
+
+``--chips`` other than 1 exits non-zero naming the ROADMAP.md item that
+will lift it (item 7, ``parallel/pool.py``).
 
 ``MINBFT_TRACE_DUMP=base`` turns the flight recorder on: at shutdown a
 replica writes its stage dump, its telemetry ring and
@@ -63,6 +77,7 @@ import os
 import signal
 import sys
 
+from ...api import NotPortedError
 from ..envflags import env_default
 
 
@@ -79,16 +94,6 @@ _PEER_OPTION_SCHEMA = {
             "metrics_host", "groups", "chips", "state_dir", "device"},
     "request": {"client_id", "timeout", "group", "device"},
 }
-
-
-class NotPortedError(SystemExit):
-    """An option whose module is not ported yet (exits non-zero)."""
-
-    def __init__(self, what: str, item: str):
-        super().__init__(
-            f"peer: {what} is not supported by the port yet "
-            f"(ROADMAP.md queue 1 item {item})"
-        )
 
 
 def load_peer_options(path: str, explicit: bool) -> dict:
@@ -270,9 +275,10 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         "--groups",
         type=int,
         default=_opt("groups", 0, section="run"),
-        help="consensus groups per replica process: 0 (default) = the "
-        "config's protocol.groups, which must be 1 here; more than one "
-        "group is not ported yet (groups/) and exits",
+        help="host this many independent consensus groups in one replica "
+        "process over shared transport and the one engine (groups/).  0 "
+        "(default) = the config's protocol.groups value; 1 = the plain "
+        "ungrouped runtime.  Must be identical cluster-wide.",
     )
     r.add_argument(
         "--chips",
@@ -393,8 +399,10 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         "--group",
         type=int,
         default=_opt("group", -1, section="request"),
-        help="pin requests to this consensus group (multi-group clusters "
-        "are not ported yet; -1 = route by key, 0 = the ungrouped cluster)",
+        help="pin requests to this consensus group instead of routing by "
+        "the shard hash of the operation bytes (multi-group clusters; "
+        "-1 = route by key).  The group count comes from the config's "
+        "protocol.groups.",
     )
     q.add_argument(
         "--read-only",
@@ -409,6 +417,73 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         "ordered read when the all-n fast quorum cannot form",
     )
     engine_args(q, section="request")
+
+    ld = sub.add_parser(
+        "load",
+        help="open-loop load run against a self-contained local cluster "
+        "(loadgen/): seeded arrival schedule at a FIXED offered rate over "
+        "real loopback TCP, latency measured from scheduled arrival time, "
+        "the replicas' checks on one engine on --device, one JSON report "
+        "line",
+    )
+    ld.add_argument(
+        "--rate", type=float, default=200.0,
+        help="offered arrivals/sec (time-averaged for --process onoff)",
+    )
+    ld.add_argument("--duration", type=float, default=5.0, help="seconds")
+    ld.add_argument(
+        "--seed", type=lambda s: int(s, 0), default=1,
+        help="schedule seed (same seed = byte-identical schedule)",
+    )
+    ld.add_argument(
+        "--process", choices=("poisson", "onoff"), default="poisson",
+        help="arrival process: memoryless (default) or bursty on/off",
+    )
+    ld.add_argument(
+        "--clients", type=int, default=1000,
+        help="distinct client identities (own keys + seq spaces)",
+    )
+    ld.add_argument(
+        "--conns", type=int, default=4,
+        help="connection-pool slots; total sockets = slots x replicas",
+    )
+    ld.add_argument(
+        "--replicas", type=int, default=4, help="cluster size (f=(n-1)//3)"
+    )
+    ld.add_argument(
+        "--groups", type=int, default=1,
+        help="consensus groups (arrivals shard-routed by client key)",
+    )
+    ld.add_argument(
+        "--read-fraction", type=float, default=0.0,
+        help="fraction of arrivals on the read-only fast path",
+    )
+    ld.add_argument(
+        "--large-fraction", type=float, default=0.0,
+        help="fraction of arrivals carrying the large payload class",
+    )
+    ld.add_argument(
+        "--scheme", choices=("mac", "ecdsa-p256"), default="mac",
+        help="request auth: pairwise MACs (default — measures the "
+        "ingest/admission path, not host public-key crypto) or ECDSA",
+    )
+    ld.add_argument(
+        "--expect-goodput", type=float, default=0.0,
+        help="rc=1 unless goodput_per_sec reaches this (CI gate); with "
+        "0 (default) rc gates only on schedule faithfulness (census)",
+    )
+    ld.add_argument(
+        "--drain", type=float, default=10.0,
+        help="seconds past the last arrival to wait for stragglers",
+    )
+    ld.add_argument(
+        "--slo-target-ms", type=float, default=0.0,
+        help="finality-SLO bar: rc=1 unless the fraction "
+        "of fired requests committing inside this budget reaches the "
+        "objective (MINBFT_SLO_OBJECTIVE, default 0.99); 0 (default) = "
+        "no SLO leg in the rc contract",
+    )
+    engine_args(ld)
 
     b = sub.add_parser(
         "bench",
@@ -449,6 +524,7 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         help="fault plan applied to every link (default with --chaos-seed: "
         "lossy); implies chaos mode",
     )
+    engine_args(st)
 
     t = sub.add_parser(
         "testnet", help="scaffold keys.yaml + consensus.yaml for a local cluster"
@@ -471,8 +547,8 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
     )
     t.add_argument(
         "--groups", type=int, default=1,
-        help="consensus groups declared in consensus.yaml: only 1 is "
-        "ported (groups/); more exits",
+        help="declare this many consensus groups in consensus.yaml "
+        "(protocol.groups; `peer run` hosts them all per replica)",
     )
     return p
 
@@ -486,15 +562,13 @@ def _log_opts(args):
     return opts
 
 
-def _make_engine(args, max_batch: int, buckets=None):
-    """The process's engine under the device rule (module docstring):
-    None with ``--no-batch``; otherwise a BatchVerifier on ``--device``.
-    CUDA asked for and absent exits non-zero."""
+def _engine_device(args):
+    """The engine's device under the device rule (module docstring): None
+    with ``--no-batch``, else ``--device``; CUDA asked for and absent
+    exits non-zero."""
     if args.no_batch:
         return None
     import torch
-
-    from ...parallel import BatchVerifier
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -503,6 +577,17 @@ def _make_engine(args, max_batch: int, buckets=None):
             "False: pass --device cpu for the kernels' plain versions or "
             "--no-batch for serial host crypto"
         )
+    return device
+
+
+def _make_engine(args, max_batch: int, buckets=None):
+    """The process's engine on :func:`_engine_device` (None with
+    ``--no-batch``)."""
+    device = _engine_device(args)
+    if device is None:
+        return None
+    from ...parallel import BatchVerifier
+
     # On the CPU the sign queue runs the plain k*G too, so --device cpu
     # is the kernels' plain versions end to end.
     return BatchVerifier(
@@ -552,15 +637,6 @@ def engine_report(engine) -> dict:
     }
 
 
-def _refuse_unported_run_options(args, cfg) -> None:
-    """Exit on an option whose module is not ported."""
-    n_groups = args.groups if args.groups > 0 else getattr(cfg, "groups", 1)
-    if n_groups > 1:
-        raise NotPortedError(f"{n_groups} consensus groups (groups/)", "6")
-    if args.chips != 1:
-        raise NotPortedError(f"--chips {args.chips} (parallel/pool.py)", "7")
-
-
 async def _run_replica(args) -> int:
     from ...core import new_replica
     from ...sample.authentication import KeyStore
@@ -577,7 +653,8 @@ async def _run_replica(args) -> int:
 
     store = KeyStore.load(args.keys)
     cfg = load_config(args.config)
-    _refuse_unported_run_options(args, cfg)
+    if args.chips != 1:
+        raise NotPortedError(f"--chips {args.chips} (parallel/pool.py)", "7")
     addrs = {p.id: p.addr for p in cfg.peers}
     if args.id not in addrs:
         raise SystemExit(f"peer: replica {args.id} not in {args.config} peers[]")
@@ -594,12 +671,14 @@ async def _run_replica(args) -> int:
     # here, before the replica serves.
     engine = _make_engine(args, args.batch, buckets=(args.batch,))
 
-    # One call = one authenticator instance = one fresh USIG epoch (the
-    # keystore restores the sealed key per call).
-    if args.auth == "mac":
-        auth = store.mac_replica_authenticator(args.id, engine=engine)
-    else:
-        auth = store.replica_authenticator(args.id, engine=engine)
+    def make_auth():
+        # One call = one authenticator instance = one fresh USIG epoch
+        # (the keystore restores the sealed key per call), so construct
+        # exactly as many as the runtime needs: one ungrouped, or one per
+        # group below.  Every one checks and signs through ``engine``.
+        if args.auth == "mac":
+            return store.mac_replica_authenticator(args.id, engine=engine)
+        return store.replica_authenticator(args.id, engine=engine)
 
     if args.transport == "tcp":
         # Half-open peer detection (read-idle teardown) is a property of
@@ -642,17 +721,40 @@ async def _run_replica(args) -> int:
 
     state_dir = getattr(args, "state_dir", "") or state_dir_from_env()
 
-    ledger = SimpleLedger()
-    replica = new_replica(
-        args.id, cfg, auth, conn, ledger, opts=_log_opts(args),
-        state_dir=state_dir or None,
-    )
+    n_groups = args.groups if args.groups > 0 else getattr(cfg, "groups", 1)
+    grouped = n_groups > 1
+    if grouped:
+        # Multi-group runtime: G independent group cores over this one
+        # listener and peer connection set, every core's verify and sign
+        # traffic coalescing in the ONE engine above.  Each group needs its
+        # own authenticator instance (its own USIG counter space);
+        # GroupAuthenticator domain separation rides inside the runtime.
+        from ...core.options import resolve as resolve_options
+        from ...groups import new_group_runtime
+
+        # Same log options as the ungrouped path: resolve() materialises
+        # the minbft.replica{id} logger with its one owned handler, and
+        # every group core's child logger (minbft.replica{id}.g{g})
+        # delivers into it by propagation.
+        ropts = resolve_options(args.id, _log_opts(args))
+        ledgers = [SimpleLedger() for _ in range(n_groups)]
+        replica = new_group_runtime(
+            args.id, cfg, [make_auth() for _ in range(n_groups)], conn, ledgers,
+            logger=ropts.logger, state_dir=state_dir or None,
+        )
+    else:
+        ledgers = [SimpleLedger()]
+        replica = new_replica(
+            args.id, cfg, make_auth(), conn, ledgers[0], opts=_log_opts(args),
+            state_dir=state_dir or None,
+        )
     server = ReplicaServer(replica)
     listen = args.listen or addrs[args.id]
     bound = await server.start(listen)
     print(
         f"replica {args.id} serving on {bound} "
-        f"(engine: {engine.device if engine is not None else 'none, host crypto'})",
+        f"(engine: {engine.device if engine is not None else 'none, host crypto'}"
+        f"{f'; {n_groups} groups' if grouped else ''})",
         file=sys.stderr,
     )
     try:
@@ -683,8 +785,11 @@ async def _run_replica(args) -> int:
     # config's protocol.slo block).
     from ...obs import slo as obs_slo
 
+    _handler_list = (
+        [c.handlers for c in replica.cores] if grouped else [replica.handlers]
+    )
     slo_ledgers = [
-        h.slo for h in [replica.handlers] if getattr(h, "slo", None) is not None
+        h.slo for h in _handler_list if getattr(h, "slo", None) is not None
     ]
     slo_spool = obs_slo.BreachSpool.from_env() if slo_ledgers else None
 
@@ -698,8 +803,15 @@ async def _run_replica(args) -> int:
 
         tseries = obs_ts.TimeSeries()
         sampler = obs_ts.CounterSampler(tseries)
-        obs_ts.register_replica_series(sampler, replica.metrics)
+        if grouped:
+            for core in replica.cores:
+                obs_ts.register_replica_series(
+                    sampler, core.metrics, group=core.group
+                )
+        else:
+            obs_ts.register_replica_series(sampler, replica.metrics)
         if engine is not None:
+            # once per engine: the grouped cores share it
             obs_ts.register_engine_series(sampler, engine)
         for lg in slo_ledgers:
             obs_slo.register_slo_series(sampler, lg)
@@ -709,17 +821,28 @@ async def _run_replica(args) -> int:
         from ...obs import prom as obs_prom
 
         def render() -> str:
-            # Called on the server's thread: it only reads.
-            fams = obs_prom.collect_replica(
-                metrics=replica.metrics,
-                recorder=replica.handlers.trace,
-                engine=engine,
-                replica_id=args.id,
-                timeseries=tseries,
-                slo=slo_ledgers[0] if slo_ledgers else None,
-                slo_spool=slo_spool,
-                recovery=getattr(replica, "recovery", None),
-            )
+            # Called on the server's thread: it only reads.  A grouped
+            # runtime gives one family block per metric with samples
+            # labelled per group, and the shared engine's families once.
+            if grouped:
+                fams = obs_prom.collect_group_runtime(
+                    replica,
+                    engine=engine,
+                    replica_id=args.id,
+                    timeseries=tseries,
+                    slo_spool=slo_spool,
+                )
+            else:
+                fams = obs_prom.collect_replica(
+                    metrics=replica.metrics,
+                    recorder=replica.handlers.trace,
+                    engine=engine,
+                    replica_id=args.id,
+                    timeseries=tseries,
+                    slo=slo_ledgers[0] if slo_ledgers else None,
+                    slo_spool=slo_spool,
+                    recovery=getattr(replica, "recovery", None),
+                )
             if chaos_net is not None:
                 fams.extend(obs_prom.collect_faultnet(
                     chaos_net.census, base={"replica": str(args.id)}
@@ -781,10 +904,18 @@ async def _run_replica(args) -> int:
 
         while not stop.is_set():
             await asyncio.sleep(args.metrics_interval)
-            snap = replica.metrics.snapshot()
-            snap["executed_per_sec"] = round(
-                replica.metrics.executed_per_sec(), 2
-            )
+            if grouped:
+                # Same schema as the ungrouped line: the one rate field is
+                # the process's aggregate across its group cores.
+                snap = replica.metrics_aggregate()
+                snap["executed_per_sec"] = round(
+                    sum(core.metrics.executed_per_sec() for core in replica.cores), 2
+                )
+            else:
+                snap = replica.metrics.snapshot()
+                snap["executed_per_sec"] = round(
+                    replica.metrics.executed_per_sec(), 2
+                )
             print(f"metrics: {_json.dumps(snap)}", file=sys.stderr)
 
     metrics_task = (
@@ -798,8 +929,9 @@ async def _run_replica(args) -> int:
     # ring reading, and without ticks the window is always empty.
     slo_watch_tasks = []
     if slo_spool is not None and sampler is not None:
-        _slo_recorders = [replica.handlers.trace] if getattr(
-            replica.handlers, "trace", None) is not None else []
+        _slo_recorders = [
+            h.trace for h in _handler_list if getattr(h, "trace", None) is not None
+        ]
 
         def _slo_bundle(burn: dict) -> dict:
             return obs_slo.build_bundle(
@@ -864,10 +996,16 @@ async def _run_replica(args) -> int:
     dump_ts()
     await server.stop()
     await conn.close()
-    if engine is not None:
-        # One line a harness can read from the log (bench.py's mp runs).
-        import json as _json
+    import json as _json
 
+    # Lines a harness can read from the log: each group's ledger (its
+    # length and state digest: replicas that agree print the same) and the
+    # engine's report (bench.py's mp runs, chip_smoke.py).
+    print(f"replica {args.id} ledgers " + _json.dumps([
+        {"group": g, "length": lg.length, "digest": lg.state_digest().hex()}
+        for g, lg in enumerate(ledgers)
+    ]), file=sys.stderr, flush=True)
+    if engine is not None:
         print(f"replica {args.id} engine {_json.dumps(engine_report(engine))}",
               file=sys.stderr, flush=True)
     return 0
@@ -879,22 +1017,35 @@ def _client_auth(args, store, client_id: int, engine):
     return store.client_authenticator(client_id, engine=engine)
 
 
-def _refuse_groups(cfg, pin: int) -> None:
+def _new_cli_client(cfg, client_id: int, auth, conn, pin: int = -1, **kw):
+    """The client of ``request`` and ``bench``: against a multi-group
+    config a :class:`~minbft_tpu_torch.groups.MultiGroupClient` (each
+    operation routed to its key-space shard by the hash of its bytes, or
+    pinned with ``--group``), else a plain client."""
+    from ...client import new_client
+
     n_groups = getattr(cfg, "groups", 1)
     if n_groups > 1:
-        raise NotPortedError(
-            f"a config with {n_groups} consensus groups (groups/)", "6"
-        )
+        from ...groups import MultiGroupClient
+
+        if pin >= n_groups:
+            # validate the pin up front: a clean CLI error, not a
+            # ValueError out of the router mid-request
+            raise SystemExit(
+                f"peer: --group {pin} out of range (config declares "
+                f"{n_groups} groups: 0..{n_groups - 1})"
+            )
+        return MultiGroupClient(client_id, cfg.n, cfg.f, n_groups, auth, conn, **kw)
     if pin > 0:
         # --group 0 against an ungrouped config stays accepted: group 0
         # IS the ungrouped wire format by definition (bare frames).
         raise SystemExit(
             f"peer: --group {pin} but the config declares no groups"
         )
+    return new_client(client_id, cfg.n, cfg.f, auth, conn, **kw)
 
 
 async def _run_request(args) -> int:
-    from ...client import new_client
     from ...sample.authentication import KeyStore
     from ...sample.config import load_config
 
@@ -910,7 +1061,7 @@ async def _run_request(args) -> int:
     addrs = {p.id: p.addr for p in cfg.peers}
     if len(addrs) < cfg.n:
         raise SystemExit("peer: config peers[] does not cover all replicas")
-    _refuse_groups(cfg, getattr(args, "group", -1))
+    pin = getattr(args, "group", -1)
     # A client's batches are its own REQUEST signs and the f+1..n REPLYs
     # of each request: the engine's default ladder of buckets.
     engine = _make_engine(args, 512)
@@ -920,10 +1071,11 @@ async def _run_request(args) -> int:
         ops = [line.rstrip("\n").encode() for line in sys.stdin if line.strip()]
 
     conn = connect_many_replicas(addrs, kind="client")
-    client = new_client(
-        args.client_id, cfg.n, cfg.f,
-        _client_auth(args, store, args.client_id, engine), conn,
+    client = _new_cli_client(
+        cfg, args.client_id, _client_auth(args, store, args.client_id, engine),
+        conn, pin,
     )
+    kw = {"group": pin} if getattr(cfg, "groups", 1) > 1 and pin >= 0 else {}
     await client.start()
     rc = 0
     try:
@@ -934,6 +1086,7 @@ async def _run_request(args) -> int:
                     read_only=getattr(args, "read_only", False),
                     read_fallback=not getattr(args, "no_read_fallback", False),
                     read_timeout=min(args.timeout, 30.0),
+                    **kw,
                 ),
                 args.timeout,
             )
@@ -958,7 +1111,6 @@ async def _run_bench_clients(args) -> int:
     import json as _json
     import time as _time
 
-    from ...client import new_client
     from ...sample.authentication import KeyStore
     from ...sample.config import load_config
 
@@ -978,7 +1130,7 @@ async def _run_bench_clients(args) -> int:
     store = KeyStore.load(args.keys)
     cfg = load_config(args.config)
     addrs = {p.id: p.addr for p in cfg.peers}
-    _refuse_groups(cfg, -1)
+    n_groups = getattr(cfg, "groups", 1)
     # One engine for every client of this process: REQUEST signs (K3)
     # and REPLY verifies (K2) from all of them coalesce into its batches.
     engine = _make_engine(args, 512, buckets=(512,))
@@ -990,8 +1142,11 @@ async def _run_bench_clients(args) -> int:
     clients = []
     for k in range(args.clients):
         cid = args.client_base + k
-        c = new_client(
-            cid, cfg.n, cfg.f, _client_auth(args, store, cid, engine), conn,
+        # Against a multi-group config each client routes its operations
+        # across the groups by their hash (the reference's bench drives
+        # group 0 only).
+        c = _new_cli_client(
+            cfg, cid, _client_auth(args, store, cid, engine), conn,
             retransmit_interval=30.0,
         )
         await c.start()
@@ -1001,8 +1156,12 @@ async def _run_bench_clients(args) -> int:
     total = per_client * args.clients
     tag = (args.tag or "mp").encode()
 
-    # settle the streams (and any cold server-side state) off the clock
-    await asyncio.wait_for(clients[0].request(tag + b"-warmup"), args.timeout)
+    # settle the streams (and any cold server-side state) off the clock,
+    # one request into each group
+    for g in range(n_groups):
+        kw = {"group": g} if n_groups > 1 else {}
+        await asyncio.wait_for(clients[0].request(tag + b"-warmup", **kw),
+                               args.timeout)
 
     latencies_ms: list = []
 
@@ -1067,6 +1226,7 @@ async def _run_bench_clients(args) -> int:
         "seconds": round(dt, 3),
         "req_per_sec": round(total / dt, 1),
         "cpu_per_wall": round(cpu_s / dt, 3),
+        "groups": n_groups,
         "latencies_ms": latencies_ms,
     }
     if engine is not None:
@@ -1076,9 +1236,102 @@ async def _run_bench_clients(args) -> int:
     os._exit(0)
 
 
+async def _run_load(args) -> int:
+    """Open-loop load run: self-contained — scaffolds its own keys and
+    in-process cluster (client traffic over real loopback TCP, the
+    replicas' checks on one engine on ``--device``), drives the seeded
+    schedule, prints ONE JSON report line on stdout.
+
+    rc contract (the CI load-smoke step's interface): 0 = schedule fired
+    faithfully (live census == seed replay) and any --expect-goodput bar
+    was met and any --slo-target-ms bar was met; 1 otherwise.  Progress
+    notes go to stderr."""
+    import json as _json
+
+    from ...loadgen import LoadSpec
+    from ...loadgen.runner import run_local_load
+
+    device = _engine_device(args)
+    n = args.replicas
+    spec = LoadSpec(
+        seed=args.seed,
+        rate=args.rate,
+        duration_s=args.duration,
+        n_clients=args.clients,
+        process=args.process,
+        read_fraction=args.read_fraction,
+        large_fraction=args.large_fraction,
+        n_groups=args.groups,
+    )
+    spec.validate()
+    print(
+        # noqa: SH301 - a load-schedule seed is a PUBLIC replay token
+        # (printed so a run can be reproduced, same as chaos seeds), not
+        # key material.
+        f"load: seed={spec.seed:#x} {spec.process} {spec.rate}/s x "  # noqa: SH301
+        f"{spec.duration_s}s, {spec.n_clients} clients over "
+        f"{args.conns * n} sockets, n={n}, engine "
+        f"{device if device is not None else 'none, host crypto'}",
+        file=sys.stderr,
+    )
+    report = await run_local_load(
+        spec,
+        n=n,
+        f=(n - 1) // 3,
+        pool_slots=args.conns,
+        drain_s=args.drain,
+        expect_goodput=args.expect_goodput,
+        scheme=args.scheme,
+        slo_target_ms=args.slo_target_ms if args.slo_target_ms > 0 else None,
+        device=None if device is None else str(device),
+    )
+    print(_json.dumps(report), flush=True)
+    ok = (
+        report["census_ok"]
+        and report.get("goodput_ok", True)
+        and report.get("slo_ok", True)
+    )
+    if not report["census_ok"]:
+        print("load: FAILED — generator diverged from the seeded "
+              "schedule (census mismatch)", file=sys.stderr)
+    if not report.get("goodput_ok", True):
+        print(
+            f"load: FAILED — goodput {report['goodput_per_sec']}/s below "
+            f"the --expect-goodput {args.expect_goodput}/s bar",
+            file=sys.stderr,
+        )
+    if not report.get("slo_ok", True):
+        print(
+            f"load: FAILED — slo_good_fraction "
+            f"{report['slo_good_fraction']} below the "
+            f"{report['slo_objective']} objective for the "
+            f"{args.slo_target_ms}ms finality budget",
+            file=sys.stderr,
+        )
+    # The report is out; a leaked replica task wedging interpreter
+    # shutdown must not turn a green run red (the `peer bench` idiom).
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0 if ok else 1)
+
+
 async def _run_selftest(args) -> int:
     """In-process n=4/f=1 commit through generated keys + the dummy
-    connector — a deployment smoke test needing no files or sockets."""
+    connector — a deployment smoke test needing no files or sockets.  The
+    four replicas and the client share one engine on ``--device`` (the
+    device rule); at the end it prints ``selftest engine {json}`` on
+    stderr, the engine's report."""
+    engine = _make_engine(args, 512)
+    rc = await _selftest(args, engine)
+    if engine is not None:
+        import json as _json
+
+        print(f"selftest engine {_json.dumps(engine_report(engine))}",
+              file=sys.stderr, flush=True)
+    return rc
+
+
+async def _selftest(args, engine) -> int:
     from ... import api
     from ...client import new_client
     from ...core import new_replica
@@ -1128,7 +1381,7 @@ async def _run_selftest(args) -> int:
         r = new_replica(
             i,
             cfg,
-            store.replica_authenticator(i),
+            store.replica_authenticator(i, engine=engine),
             _wrap(InProcessPeerConnector(stubs), f"r{i}"),
             ledgers[i],
             opts=_log_opts(args),
@@ -1141,7 +1394,7 @@ async def _run_selftest(args) -> int:
         0,
         n,
         f,
-        store.client_authenticator(0),
+        store.client_authenticator(0, engine=engine),
         _wrap(InProcessClientConnector(stubs), "c0"),
         retransmit_interval=1.0 if net is not None else None,
     )
@@ -1251,8 +1504,6 @@ def _run_testnet_scaffold(args) -> int:
     sample/docker/docker-entrypoint.sh, as an explicit command)."""
     from ...sample.authentication import generate_testnet_keys
 
-    if args.groups > 1:
-        raise NotPortedError(f"testnet --groups {args.groups} (groups/)", "6")
     f = args.faults if args.faults is not None else (args.replicas - 1) // 2
     if args.replicas < 2 * f + 1:
         raise SystemExit(f"peer: n={args.replicas} < 2f+1 with f={f}")
@@ -1786,6 +2037,8 @@ def main(argv=None) -> int:
         return asyncio.run(_run_request(args))
     if args.command == "bench":
         return asyncio.run(_run_bench_clients(args))
+    if args.command == "load":
+        return asyncio.run(_run_load(args))
     if args.command == "selftest":
         return asyncio.run(_run_selftest(args))
     if args.command == "testnet":

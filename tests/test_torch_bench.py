@@ -349,3 +349,104 @@ def test_ingest_sweep_runs_each_operating_point_as_the_reference(monkeypatch):
     with pytest.raises(bench.BenchError):  # the port's rule: a failed point fails
         bench.bench_ingest_sweep(24, device="cpu")
     assert os.environ["MINBFT_INGEST_MAX"] == "33"
+
+
+# The reference's keys of one bench_groups point (_bench_groups_cluster:
+# bench.py, the timeline only when its sampler ticked) and of bench_load.
+GROUPS_POINT_SUFFIXES = {
+    "n", "f", "requests", "clients", "committed_req_per_sec", "request_latency_p50_ms",
+    "verify_mean_batch", "verify_batches", "device_verifies_per_sec", "queue_depth_peak",
+    "util_busy", "util_fill", "util_useful", "util_effective_per_sec",
+    "util_per_device_per_sec", "util_ceiling_per_sec", "util_ceiling_source", "util_idle_s",
+    "util_lanes_useful", "util_lanes_padding", "util_lanes_memo", "util_lanes_fallback",
+}
+LOAD_POINT_SUFFIXES = {
+    "offered_per_sec", "goodput_per_sec", "p50_ms", "p99_ms", "send_p99_ms",
+    "finality_p99_ms", "slo_good_fraction", "timeouts", "census_ok", "busy_received",
+    "shed", "busy_sent", "rx_peak",
+}
+LOAD_KEYS = {f"load_{t}_{s}" for t in ("half", "sat", "over") for s in LOAD_POINT_SUFFIXES} | {
+    "load_seed", "load_clients", "load_requests_per_point", "load_burst_peak_per_sec",
+    "load_probe_offered_per_sec", "load_probe_census_ok", "load_probe_goodput_per_sec",
+    "load_probe_shed", "load_probe_busy_sent", "load_probe_busy_received",
+    "load_probe_timeouts", "load_probe_rx_peak", "load_peak_per_sec",
+    "load_over_goodput_fraction"}
+
+
+def test_groups_point_on_a_cpu_engine_emits_the_reference_keys():
+    """One ``_bench_groups_cluster`` point for real (G = 2, one request a
+    group, two clients, one CPU engine: REQUEST and REPLY signatures
+    through the plain K2 and K3, UIs through the plain K6): every group's
+    ledger equal on every replica, the reference's keys, no dispatch
+    timed out."""
+    import asyncio
+
+    out = asyncio.run(bench._bench_groups_cluster(2, 1, n_clients=2, max_batch=16,
+                                                  device="cpu"))
+    assert {f"groups2_{s}" for s in GROUPS_POINT_SUFFIXES} <= set(out)
+    assert out["groups2_requests"] == 2 and out["groups2_dispatch_timeouts"] == 0
+    assert out["groups2_verify_batches"] > 0 and out["groups2_sig_batches"] > 0
+
+
+def test_groups_sweep_runs_every_g_and_fails_on_a_failed_point(monkeypatch):
+    seen = []
+
+    async def point(G, per_group, device=None):
+        seen.append((G, per_group, device))
+        if G == 8 and per_group == 3:
+            raise bench.BenchError("a short ledger")
+        return {f"groups{G}_{s}": 1.0 for s in GROUPS_POINT_SUFFIXES}
+
+    monkeypatch.setattr(bench, "_bench_groups_cluster", point)
+    monkeypatch.setenv("MINBFT_BENCH_GROUPS_RUNS", "2")
+    out = bench.bench_groups(5, device="cpu")
+    assert [g for g, _, _ in seen] == [1, 1, 2, 2, 4, 4, 8, 8, 16, 16]
+    assert {p for _, p, _ in seen} == {5} and {d for _, _, d in seen} == {"cpu"}
+    assert out["groups_sweep_Gs"] == [1, 2, 4, 8, 16]
+    assert out["groups_sweep_per_group_requests"] == 5
+    for G in (1, 2, 4, 8, 16):
+        assert {f"groups{G}_{s}" for s in GROUPS_POINT_SUFFIXES} <= set(out)
+        assert out[f"groups{G}_req_per_sec_runs"] == [1.0, 1.0]
+        assert out[f"groups{G}_req_per_sec_stddev"] == 0.0
+    with pytest.raises(bench.BenchError):  # the port's rule: a failed point fails
+        bench.bench_groups(3, device="cpu")
+
+
+def test_load_section_on_a_cpu_engine_emits_the_reference_keys(monkeypatch):
+    """``bench_load`` for real at a tiny size (20 requests a point, 20
+    clients, a probe at 40/s; the replicas' MACs and UIs through the plain
+    K6 of one CPU engine)."""
+    monkeypatch.setenv("MINBFT_LOAD_REQUESTS", "20")
+    monkeypatch.setenv("MINBFT_LOAD_CLIENTS", "20")
+    monkeypatch.setenv("MINBFT_LOAD_PROBE_RATE", "40")
+    out = bench.bench_load(device="cpu")
+    assert LOAD_KEYS <= set(out)
+    assert out["load_requests_per_point"] == 20 and out["load_clients"] == 20
+    assert all(out[f"load_{t}_census_ok"] for t in ("half", "sat", "over"))
+    assert all(out[f"load_{t}_dispatch_timeouts"] == 0 for t in ("probe", "half", "sat", "over"))
+
+
+def test_load_section_fails_on_a_census_that_is_not_the_seeds(monkeypatch):
+    import minbft_tpu_torch.loadgen.runner as runner
+
+    async def unfaithful(spec, **kw):
+        return {"census_ok": False, "census": {}, "engine": {"verify": {}, "sign": {}}}
+
+    monkeypatch.setattr(runner, "run_local_load", unfaithful)
+    with pytest.raises(bench.BenchError, match="census"):
+        bench.bench_load(device="cpu")
+
+
+def test_main_runs_the_groups_and_load_sections_named(monkeypatch):
+    ran = []
+    monkeypatch.setattr(bench, "bench_groups", lambda n, device: (
+        ran.append(("groups", n, str(device))) or {"groups1_n": 4}))
+    monkeypatch.setattr(bench, "bench_load", lambda device: (
+        ran.append(("load", str(device))) or {"load_seed": 1}))
+    monkeypatch.delenv("MINBFT_BENCH_GROUPS_REQUESTS", raising=False)
+    assert bench.main(["--device", "cpu", "load", "groups"]) == 0
+    assert ran == [("groups", 8, "cpu"), ("load", "cpu")]
+    monkeypatch.setenv("MINBFT_BENCH_GROUPS_REQUESTS", "3")
+    ran.clear()
+    assert bench.main(["--device", "cpu", "groups"]) == 0
+    assert ran == [("groups", 3, "cpu")]

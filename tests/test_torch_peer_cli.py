@@ -5,9 +5,11 @@ mode), the device rule (no CUDA and neither ``--device cpu`` nor
 ``--no-batch``: exit non-zero), the metrics endpoint and its readers
 (``run --metrics-port``, ``metrics``, ``top``, ``slo``: a replica process
 under ``MINBFT_CHAOS_SEED`` scraped as a user would, and the consoles'
-output on a fixed exposition against the reference's), and the options
-whose modules are not ported yet (exit non-zero, naming the ROADMAP
-item)."""
+output on a fixed exposition against the reference's), multi-group
+deployments (``run --groups`` and a grouped ``request`` on a CPU engine:
+every replica's ledgers equal per group), ``load`` (a CPU engine: exit
+code 0, the census the seed's replay), and the options whose modules are
+not ported yet (exit non-zero, naming the ROADMAP item)."""
 
 import contextlib
 import io
@@ -49,7 +51,12 @@ SHARED_ARGV = [
     ["slo", "127.0.0.1:1", "--timeout", "2", "--json", "--dumps", "base",
      "--breach-flag"],
     ["testnet", "-n", "7", "-f", "3", "--clients", "20", "--base-port", "4000",
-     "--host", "10.0.0.1", "-d", "net", "--usig", "NATIVE_ECDSA", "--macs"],
+     "--host", "10.0.0.1", "-d", "net", "--usig", "NATIVE_ECDSA", "--macs", "--groups", "4"],
+    ["load", "--rate", "50", "--duration", "2", "--seed", "0x5", "--process", "onoff",
+     "--clients", "10", "--conns", "2", "--replicas", "7", "--groups", "2",
+     "--read-fraction", "0.1", "--large-fraction", "0.2", "--scheme", "ecdsa-p256",
+     "--expect-goodput", "1.5", "--drain", "3", "--slo-target-ms", "100"],
+    ["load"],
 ]
 PORT_ONLY = {"device", "no_batch"}
 
@@ -61,7 +68,8 @@ def _no_peer_env(monkeypatch):
             monkeypatch.delenv(var)
 
 
-SUBCOMMANDS = ("run", "request", "bench", "selftest", "testnet", "metrics", "top", "slo")
+SUBCOMMANDS = ("run", "request", "bench", "selftest", "testnet", "metrics", "top", "slo",
+               "load")
 
 
 def _argv_id(argv):
@@ -76,7 +84,7 @@ def test_shared_subcommands_parse_to_the_reference_namespace(argv):
     extra = set(port) - set(ref)
     assert extra <= PORT_ONLY
     assert {k: v for k, v in port.items() if k not in extra} == ref
-    if port["command"] in ("run", "request", "bench"):
+    if port["command"] in ("run", "request", "bench", "selftest", "load"):
         assert port["device"] == "cuda:0"
 
 
@@ -129,7 +137,7 @@ def test_testnet_scaffold_and_selftest(tmp_path, monkeypatch):
     assert cli.main(["testnet", "-n", "3", "-d", f"{d}/soft", "--usig", "auto"]) == 0
     assert KeyStore.load(f"{d}/soft/keys.yaml").usig_spec == "SOFT_ECDSA"
     monkeypatch.undo()
-    assert cli.main(["selftest"]) == 0
+    assert cli.main(["selftest", "--no-batch"]) == 0
 
 
 @pytest.fixture
@@ -139,7 +147,8 @@ def testnet(tmp_path):
     return ["--keys", f"{d}/keys.yaml", "--config", f"{d}/consensus.yaml"]
 
 
-@pytest.mark.parametrize("sub", [["run", "0"], ["request", "op"], ["bench"]],
+@pytest.mark.parametrize("sub", [["run", "0"], ["request", "op"], ["bench"], ["selftest"],
+                                 ["load", "--duration", "0.1"]],
                          ids=lambda s: s[0])
 def test_no_cuda_and_no_cpu_or_no_batch_exits(sub, testnet, monkeypatch):
     """The device rule: without CUDA, the default ``--device cuda:0``
@@ -161,9 +170,9 @@ def test_no_cuda_exits_non_zero_as_a_process(testnet):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["run", "0", "--no-batch", "--groups", "2"], "item 6"),
+    (["run", "0", "--no-batch", "--chips", "2", "--groups", "2"], "item 7"),
     (["run", "0", "--no-batch", "--chips", "0"], "item 7"),
-], ids=["argv1-item 6", "argv2-item 7"])
+], ids=["argv1-item 7", "argv2-item 7"])
 def test_unported_run_options_exit(argv, item, testnet):
     with pytest.raises(SystemExit) as e:
         cli.main(testnet + argv)
@@ -171,22 +180,106 @@ def test_unported_run_options_exit(argv, item, testnet):
     assert item in str(e.value.code)
 
 
-@pytest.mark.parametrize("argv", [
-    ["testnet", "-n", "3", "--groups", "2"],
-], ids=["testnet-groups"])
-def test_unported_selftest_and_testnet_options_exit(argv, tmp_path):
-    argv = argv + ["-d", str(tmp_path)]
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert "not supported by the port yet" in str(e.value.code)
+def test_grouped_request_pins_are_checked_against_the_config(tmp_path):
+    d = str(tmp_path)
+    assert cli.main(["testnet", "-n", "3", "-d", d, "--usig", "SOFT_ECDSA",
+                     "--groups", "2"]) == 0
+    assert load_config(f"{d}/consensus.yaml").groups == 2
+    argv = ["--keys", f"{d}/keys.yaml", "--config", f"{d}/consensus.yaml", "request",
+            "--no-batch", "--group"]
+    with pytest.raises(SystemExit, match="out of range"):
+        cli.main(argv + ["2", "op"])
+    assert cli.main(["testnet", "-n", "3", "-d", f"{d}/plain", "--usig", "SOFT_ECDSA"]) == 0
+    with pytest.raises(SystemExit, match="declares no groups"):
+        cli.main(["--keys", f"{d}/plain/keys.yaml", "--config", f"{d}/plain/consensus.yaml",
+                  "request", "--no-batch", "--group", "1", "op"])
 
 
-@pytest.mark.parametrize("sub", ["load"])
-def test_subcommands_of_unported_modules_are_not_parsed(sub, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.build_parser().parse_args([sub, "127.0.0.1:1"])
-    assert e.value.code == 2
-    assert "invalid choice" in capsys.readouterr().err
+def test_run_groups_and_a_grouped_request_on_a_cpu_engine(tmp_path):
+    """``testnet --groups 2 --macs`` (HMAC USIGs), three ``peer run
+    --groups 2 --device cpu`` processes over TCP (every MAC and UI one
+    lane of the plain K6), one ``request --group 1`` and one routed by
+    key, both on a CPU engine; at SIGTERM every replica prints the same
+    ledgers line (each group's length and state digest) and an engine
+    report on the CPU."""
+    from minbft_tpu_torch.groups import group_for_key
+    from minbft_tpu_torch.utils.netports import free_base_port, wait_ports
+
+    d = str(tmp_path)
+    base = free_base_port(3)
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    for var in [v for v in env if v.startswith("PEER_")]:
+        env.pop(var)
+    peer = [sys.executable, "-m", "minbft_tpu_torch.sample.peer"]
+    assert subprocess.run(peer + ["testnet", "-n", "3", "-d", d, "--usig", "HMAC_SHA256",
+                                  "--macs", "--base-port", str(base)], env=env,
+                          capture_output=True, timeout=120).returncode == 0
+    common = ["--config", f"{d}/consensus.yaml", "--transport", "tcp", "--auth", "mac"]
+    procs, logs = [], []
+    try:
+        for i in range(3):
+            logs.append(open(f"{d}/r{i}.log", "wb"))
+            procs.append(subprocess.Popen(
+                peer + ["--keys", f"{d}/keys.replica{i}.yaml", *common, "run", str(i),
+                        "--groups", "2", "--device", "cpu", "--batch", "8"],
+                env=env, stdout=subprocess.DEVNULL, stderr=logs[i]))
+        assert wait_ports([base + i for i in range(3)], timeout=120)
+        client = peer + ["--keys", f"{d}/keys.yaml", *common]
+        # the config declares no groups: the replicas' --groups 2 does, and
+        # the client's environment says so (CONSENSUS_GROUPS)
+        genv = dict(env, CONSENSUS_GROUPS="2")
+        for argv in (["--group", "1", "pinned-op"], ["routed-op"]):
+            res = subprocess.run(client + ["request", "--device", "cpu", "--timeout", "120",
+                                           *argv], env=genv, capture_output=True, text=True,
+                                 timeout=240)
+            assert res.returncode == 0 and len(res.stdout.strip()) == 64, res.stderr[-2000:]
+        time.sleep(1.0)
+        for p in procs:
+            p.terminate()
+        assert [p.wait(timeout=60) for p in procs] == [0, 0, 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for fh in logs:
+            fh.close()
+    want = [0, 0]
+    want[1] += 1
+    want[group_for_key(b"routed-op", 2)] += 1
+    lines = []
+    for i in range(3):
+        with open(f"{d}/r{i}.log") as fh:
+            text = fh.read()
+        assert "2 groups" in text
+        assert " ERROR " not in text, text[-2000:]
+        lines.append(next(json.loads(ln.split(" ledgers ", 1)[1]) for ln in text.splitlines()
+                          if ln.startswith(f"replica {i} ledgers ")))
+        eng = next(json.loads(ln.split(" engine ", 1)[1]) for ln in text.splitlines()
+                   if ln.startswith(f"replica {i} engine "))
+        assert eng["device"] == "cpu" and eng["verify"]["hmac_sha256"]["items"] > 0
+    assert [g["length"] for g in lines[0]] == want
+    assert lines[1] == lines[0] and lines[2] == lines[0]
+
+
+def test_load_on_a_cpu_engine_exits_0_with_the_census_of_the_seed():
+    from minbft_tpu.loadgen import LoadSpec as RefLoadSpec
+    from minbft_tpu.loadgen import replay_census as ref_replay
+
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-m", "minbft_tpu_torch.sample.peer", "load", "--device", "cpu",
+         "--rate", "30", "--duration", "1", "--clients", "20", "--groups",
+         "2", "--seed", "0x10ad", "--expect-goodput", "1"],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-2000:]
+    rep = json.loads(res.stdout.strip().splitlines()[-1])
+    assert rep["census_ok"] and rep["goodput_ok"] and rep["timeouts"] == 0
+    assert rep["census"] == ref_replay(RefLoadSpec(seed=0x10AD, rate=30.0, duration_s=1.0,
+                                                   n_clients=20, n_groups=2))
+    assert rep["engine"]["device"] == "cpu"
+    assert rep["engine"]["verify"]["hmac_sha256"]["items"] > 0
+    assert "engine cpu" in res.stderr
 
 
 def test_chaos_selftest_prints_the_reference_census_line():
@@ -197,9 +290,9 @@ def test_chaos_selftest_prints_the_reference_census_line():
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     env.pop("MINBFT_CHAOS_SEED", None)
     out = {}
-    for pkg in ("minbft_tpu_torch", "minbft_tpu"):
+    for pkg, dev in (("minbft_tpu_torch", ["--no-batch"]), ("minbft_tpu", [])):
         res = subprocess.run([sys.executable, "-m", f"{pkg}.sample.peer", "selftest",
-                              "--chaos-seed", "7"], env=env, capture_output=True,
+                              "--chaos-seed", "7", *dev], env=env, capture_output=True,
                              text=True, timeout=240)
         assert res.returncode == 0, res.stderr[-2000:]
         out[pkg] = [ln for ln in res.stderr.splitlines() if ln.startswith("chaos ")]

@@ -230,3 +230,28 @@ def test_smoke_chaos_phase_rehearsed_with_host_crypto():
         assert sum(row["census"].values()) > 0 and row["frames"] > 0
         assert "report" not in row  # no engine without a device
     assert out["phase_s"] < chip_smoke.CHAOS_BUDGET_S
+
+
+def test_smoke_groups_and_load_phases_rehearsed_with_host_crypto():
+    """``chip_smoke.py``'s phases 16 and 17 with ``device=None``
+    (``--no-batch``): ``run_deployment(groups=4)`` — a 4-group testnet,
+    four replica processes over TCP with ``--metrics-port 0`` and a ``peer
+    bench`` routing by key — executes every
+    request on every replica (each scrape labelled per group) and every
+    replica's ledgers line is the same; ``run_peer_load`` at 1 and 4 groups
+    exits 0 with the census of the seed."""
+    import chip_smoke
+    from minbft_tpu_torch import bench
+
+    out = chip_smoke.run_deployment(bench, REPO, device=None, n_requests=40, n_clients=4,
+                                    depth=8, groups=4)
+    assert out["requests"] == 40
+    (ledgers,) = out["ledgers"]
+    assert [g["group"] for g in ledgers] == [0, 1, 2, 3]
+    assert sum(g["length"] for g in ledgers) == 40 + 4
+    assert out["executed_by_group"][0] == {str(g["group"]): g["length"] for g in ledgers}
+    assert out["phase_s"] < chip_smoke.GROUPS_BUDGET_S
+    for n_groups in (1, 4):
+        rep = chip_smoke.run_peer_load(REPO, n_groups, device=None, rate=40.0, duration=1.0,
+                                       clients=40)
+        assert rep["census_ok"] and rep["n_groups"] == n_groups and "engine" not in rep

@@ -298,6 +298,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import minbft_tpu_torch.sample.authentication.mac\n"
         "import minbft_tpu_torch.obs.prom, minbft_tpu_torch.testing\n"
         "import minbft_tpu_torch.testing.adversary, minbft_tpu_torch.sample.peer.cli\n"
+        "import minbft_tpu_torch.groups, minbft_tpu_torch.loadgen.runner\n"
         "import chip_smoke, chip_deploy_ab\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'minbft_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
