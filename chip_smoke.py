@@ -67,14 +67,14 @@ that does not hold:
    client, in-process transport) at n = 7, f = 3 with ECDSA-P256 client
    and replica signatures and ECDSA USIGs, one engine shared by the
    replicas and the clients, 100 clients pipelining 24 requests each,
-   6,000 requests (BASELINE config 3's 10,000, cut so the smoke keeps
+   4,000 requests (BASELINE config 3's 10,000, cut so the smoke keeps
    inside its time);
 9. cluster B: the same layout at n = 4, f = 1 with HMAC-SHA256 USIGs
    (their certificates checked by K6), 50 clients, 4,000 requests, plus
    8 REQUESTs with a flipped signature bit injected over a client stream;
 10. cluster C (BASELINE config 5): n = 31, f = 15 with Ed25519 client
    and replica signatures (K7, K8) and HMAC-SHA256 USIGs (K6), one
-   engine with one 1,024 bucket, 50 clients, 2,400 requests, plus 8
+   engine with one 1,024 bucket, 50 clients, 1,200 requests, plus 8
    forged REQUESTs; in every cluster phase every request must return,
    every replica's ledger must hold exactly the honest requests with
    equal state digests, every queue must be free of dispatch timeouts
@@ -100,8 +100,8 @@ that does not hold:
    lane, then their device ms before and after their redesign;
 13. the bench entry point, ``minbft_tpu_torch.bench.main``, in-process:
    the kernel section at its default batches (32,768), then the ``mac``
-   (n = 7, 4,000 requests) and ``cfg4`` (n = 13, bucket 128, 1,500
-   requests; half the bench's defaults, through its knobs) cluster
+   (n = 7, 2,000 requests) and ``cfg4`` (n = 13, bucket 128, 800
+   requests; a quarter of the bench's defaults, through its knobs) cluster
    configurations, one timed run each plus the traced and SLO runs, the ``ingest`` sweep (n = 4, HMAC USIGs, bucket 128,
    600 requests asked, 592 of them driven in 16 equal shares, at each of
    ``ingest_off``, ``ingest8``, ``ingest64`` and ``ingest1024``) and
@@ -122,7 +122,7 @@ that does not hold:
    depth 24, 2,000 requests, its engine on cuda:0), then SIGTERM to the
    replicas; then the port bench's ``mptcp`` section (n = 7, f = 3, seven
    replica processes and one client process over TCP, 20 x 48, one run of
-   2,000 requests with ``MINBFT_BENCH_RUNS=1``, plus its SLO run).  Every
+   1,200 requests with ``MINBFT_BENCH_RUNS=1``, plus its SLO run).  Every
    request must commit, every process exit 0 (the replicas within 60 s of
    SIGTERM), no log hold an ERROR record (the bench reads each replica's
    up to SIGTERM), no dispatch time out, every replica's and client's
@@ -176,7 +176,29 @@ that does not hold:
    point: the saturation probe and the half, sat and over points), every
    census the seed's replay and K6 launched in its window; it prints the
    offered rate, goodput, p50/p99, shed and BUSY counts;
-18. one JSON line of per-kernel numbers (launches, parity, times, bounds).
+18. the crash-recovery soak on the card (``testing/recovery_soak.py``, the
+   bench's ``recovery`` run): ``testnet`` (n = 4, SOFT_ECDSA USIGs, 6
+   clients), four ``run`` processes over TCP with durable stores,
+   ``--metrics-port 0`` and the pinned chaos seed, every replica's and the
+   ``bench`` client's engine on cuda:0, 6 clients x depth 4,
+   ``bench.RECOVERY_REQUESTS_CARD`` requests; replica 3 is killed with
+   ``kill -9`` once its store exists and restarted against it after 0.5
+   s.  Every request must commit, the restarted replica report its
+   restored count and a finite recovery time, every store hold its
+   invariants, every census equal the seed's replay, every engine report
+   (the restarted replica's second instance and the client's included)
+   show K2 and K3 launched with no dispatch timed out, one ledger digest
+   on every replica that executed every request (f + 1 at least), and no
+   log hold an ERROR record but those of a count that a view change the
+   dropped frames set off re-certified: "checkpoint divergence" records
+   whose every conflicting claim is in another view, and local snapshots
+   certified in another view with the same state (counted and printed;
+   ``recertified``), every wait inside a
+   budget of 180 s; it prints ``restart_to_listen_ms`` apart from
+   ``chaos_recovery_time_ms``, ``wall_recovery_ms``, the drain margin
+   (the load left after the restarted replica's first execution), the
+   goodput and the CUDA contexts, beside the card's name and power limit;
+19. one JSON line of per-kernel numbers (launches, parity, times, bounds).
 
 Each phase's start is printed with the seconds since the smoke began.
 Kernel times are CUDA-event medians: ``ms`` brackets one wrapper call
@@ -200,6 +222,7 @@ import io
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -292,20 +315,20 @@ SHA_BEFORE_MS = {
 }
 K4_BEFORE_MS = {"K4": {512: 1.549, 16384: 1.915}}
 # Requests of cluster phase A (the main path, n = 7).
-CLUSTER_A_REQUESTS = 6_000
+CLUSTER_A_REQUESTS = 4_000
 # Requests of cluster phase C (BASELINE config 5, n = 31).  Config 5
-# names a sustained 100k-request stream; this is a burst of two windows
-# of the 1,200 requests in flight (50 clients x 24), so its requests/s is
-# fill and drain, not that stream's steady rate.
-CLUSTER_C_REQUESTS = 2_400
+# names a sustained 100k-request stream; this is one window of the 1,200
+# requests in flight (50 clients x 24), so its requests/s is fill and
+# drain, not that stream's steady rate.
+CLUSTER_C_REQUESTS = 1_200
 # How long each cluster request may take before its phase fails.
 REQUEST_TIMEOUT_S = 120.0
 # Phase 13: the bench's sections that the smoke runs (the kernel section
-# at its default batches, and two cluster configurations at half the
-# bench's default lengths, one timed run each); the other configurations'
-# paths are clusters A-C's.
+# at its default batches, and two cluster configurations at a quarter of
+# the bench's default lengths, one timed run each); the other
+# configurations' paths are clusters A-C's.
 BENCH_SECTIONS = ("kernels", "mac", "cfg4", "ingest", "readonly")
-BENCH_REQUESTS = {"mac": 4000, "cfg4": 1500}
+BENCH_REQUESTS = {"mac": 2000, "cfg4": 800}
 # The ingest sweep's points and requests a point, the read-only section's
 # reads and clients (the reference's defaults off the CPU).
 INGEST_PREFIXES = ("ingest_off", "ingest8", "ingest64", "ingest1024")
@@ -563,8 +586,6 @@ def before_after(kernels: dict, before: dict) -> str:
 def ptxas_kernels(log: str) -> dict:
     """nvcc -Xptxas -v output -> {kernel entry (mangled): (registers, stack
     frame bytes, spill store bytes, spill load bytes)}."""
-    import re
-
     out, entry, frame = {}, None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -588,7 +609,6 @@ def sass_profile(lib: str) -> dict:
     chain of dependent instructions)}: a per-lane instruction count of a
     straight-line kernel and the depth of its critical path, read from the
     code the card runs.  Empty where the toolkit has no cuobjdump."""
-    import re
     from collections import Counter, defaultdict
 
     from minbft_tpu_torch.ops import backend
@@ -1211,7 +1231,7 @@ DEPLOY_DEPTH = 24
 DEPLOY_REQUESTS = 2000
 # The bench's mptcp run (n = 7, f = 3): one run of this many requests
 # (the reference's default is the e2e count, 10,000).
-MPTCP_REQUESTS = 2000
+MPTCP_REQUESTS = 1200
 
 
 # Phase 15: the same path under chaos, with the metrics endpoint.
@@ -1252,6 +1272,11 @@ LOAD_DURATION_S = 5.0
 LOAD_GROUPS = (1, 4)
 LOAD_BENCH_REQUESTS = 400
 LOAD_TIMEOUT_S = 240.0
+
+
+# Phase 18: the crash-recovery soak (the bench's recovery section's run,
+# ``bench.RECOVERY_SOAK`` at its count on the card), in a budget of its own.
+SOAK_BUDGET_S = 180.0
 
 
 def executed_by_group(fams: dict) -> dict:
@@ -1339,41 +1364,6 @@ def ledger_lines(text: str) -> list:
     fail("no ledgers line in a replica log")
 
 
-def metrics_port(log_path: str, timeout: float) -> int:
-    """The port a ``peer run --metrics-port 0`` replica announced on its
-    stderr log (the reference's recovery soak reads it the same way)."""
-    import re
-
-    deadline = time.time() + timeout
-    while time.time() < deadline:
-        with open(log_path, "rb") as fh:
-            m = re.search(rb"metrics on http://[^:]+:(\d+)/metrics", fh.read())
-        if m:
-            return int(m.group(1))
-        time.sleep(0.2)
-    fail(f"{log_path}: no metrics endpoint announced in {timeout:.0f} s")
-
-
-def census_from_scrape(fams: dict) -> dict:
-    """(seeded counts, per-link frames) from the faultnet families of one
-    scrape (the reference's ``recovery_soak._census_from_scrape``)."""
-    from minbft_tpu_torch.testing.faultnet import SEEDED_KINDS
-
-    seeded = {k: 0 for k in SEEDED_KINDS}
-    fam = fams.get("minbft_faultnet_injected_total")
-    for key, v in (fam["samples"] if fam else {}).items():
-        kind = dict(key).get("kind")
-        if kind in seeded:
-            seeded[kind] = int(v)
-    frames: dict = {}
-    fam = fams.get("minbft_faultnet_frames_total")
-    for key, v in (fam["samples"] if fam else {}).items():
-        src, _, dst = dict(key).get("link", "").partition(">")
-        if src and dst:
-            frames[(src, dst)] = int(v)
-    return {"seeded": seeded, "frames": frames}
-
-
 def engine_rows(fams: dict) -> dict:
     """{side: {queue: (items, batches)}} from the ``minbft_engine``
     families of one scrape (``minbft_{verify,sign}_queue_*_total``)."""
@@ -1394,6 +1384,7 @@ def probe_live_replicas(run_cli, addrs: list, left) -> dict:
     census and the frames are read by one render, while the replica's
     loop may still carry frames)."""
     from minbft_tpu_torch.obs.prom import parse_exposition, scrape
+    from minbft_tpu_torch.testing.recovery_soak import _census_from_scrape
 
     res = run_cli("metrics", *addrs)
     check(res.returncode == 0 and "merged cluster aggregate" in res.stdout,
@@ -1413,7 +1404,7 @@ def probe_live_replicas(run_cli, addrs: list, left) -> dict:
         last = None
         while True:
             fams = parse_exposition(scrape(addr, timeout=10))
-            census = census_from_scrape(fams)
+            census = _census_from_scrape(fams)
             if last is not None and census == last:
                 break
             last = census
@@ -1491,6 +1482,8 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
 
     import yaml
 
+    from minbft_tpu_torch.testing.recovery_soak import _metrics_port
+
     t_phase = time.time()
     grouped = groups > 1
     budget = CHAOS_BUDGET_S if chaos else GROUPS_BUDGET_S if grouped else DEPLOY_BUDGET_S
@@ -1542,7 +1535,7 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
               f"{label}: replicas never bound their ports")
         start_s = time.time() - t0
         if chaos or grouped:
-            addrs = [f"127.0.0.1:{metrics_port(f'{d}/replica{i}.log', left())}"
+            addrs = [f"127.0.0.1:{_metrics_port(f'{d}/replica{i}.log', 0, left())}"
                      for i in range(DEPLOY_N)]
         if chaos:
             for i in range(DEPLOY_N):
@@ -1658,6 +1651,103 @@ def run_deployment(bench, repo: str, device: "str | None" = "cuda:0",
         for log in logs:
             log.close()
         shutil.rmtree(d, ignore_errors=True)
+
+
+def recertified(record: str) -> bool:
+    """Whether an ERROR record of a diverged checkpoint is a view change's
+    re-certification of one count (the digest covers the view, so one
+    state reads as another digest; ROADMAP.md queue 3): a "checkpoint
+    divergence" whose every conflicting claim is in another view than the
+    claim it was held against, or a local snapshot that was certified in
+    another view than it executed in with the same state.  A conflict
+    inside one view is a fork and never excused."""
+    m = re.search(r"executed in view (\d+) cv \d+, certified in view (\d+) cv \d+: "
+                  r"the same state\)$", record)
+    if m:
+        return m.group(1) != m.group(2)
+    m = re.search(r"certified \S+ in view (\d+) cv \d+ vs stable \S+ in view (\d+) cv", record)
+    if m:
+        return m.group(1) != m.group(2)
+    m = re.search(r"at count \d+: \S+ in view (\d+) cv \d+ vs replicas (.+)$", record)
+    if not m:
+        return False
+    views = re.findall(r"\d+ in view (\d+) cv \d+", m.group(2))
+    return bool(views) and m.group(1) not in views
+
+
+def run_soak(bench) -> dict:
+    """One kill -9 soak of real ``peer run`` processes
+    (``testing.recovery_soak.run_recovery_soak`` at ``bench.RECOVERY_SOAK``:
+    n = 4, SOFT_ECDSA USIGs, TCP, 6 clients x depth 4, the default soak
+    plan under ``bench.RECOVERY_SEED``, replica 3 killed once its store
+    exists, restarted after 0.5 s; ``bench.RECOVERY_REQUESTS_CARD``
+    requests), every replica's and the client's engine on cuda:0, every
+    wait inside ``SOAK_BUDGET_S``.  Beyond the soak's own checks (every
+    request committed, a durable restore, a finite recovery time, the
+    store invariants, every census the seed's replay), every process's
+    engine report must show its engine on cuda:0 with K2 and K3 launched,
+    ECDSA verify and sign batches, no dispatch timed out and no
+    host-signed lane (the restarted replica's second instance included),
+    and no replica or client log may hold an ERROR record other than a
+    view change's re-certification of a count (``recertified``).  Returns the
+    soak's report with the phase's seconds, the CUDA contexts the
+    processes report and the launches."""
+    import tempfile
+
+    from minbft_tpu_torch.testing import InvariantViolation
+    from minbft_tpu_torch.testing.recovery_soak import run_recovery_soak
+
+    requests = bench.RECOVERY_REQUESTS_CARD
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="minbft-smoke-soak.") as wd:
+        try:
+            rep = run_recovery_soak(
+                wd, requests=requests, chaos_seed=bench.RECOVERY_SEED, device="cuda:0",
+                budget_s=SOAK_BUDGET_S, **bench.RECOVERY_SOAK)
+        except (AssertionError, InvariantViolation, subprocess.TimeoutExpired) as e:
+            fail(f"recovery soak: {type(e).__name__}: {e}")
+        errs, ledgers, rep["view_change_errors"] = {}, [], 0
+        for name in [f"replica{i}.log" for i in range(4)] + ["bench.log"]:
+            with open(os.path.join(wd, name), errors="replace") as fh:
+                text = fh.read()
+            lines = [ln for ln in text.splitlines() if " ERROR " in ln]
+            if name.startswith("replica"):
+                ledgers.append(ledger_lines(text))
+                excused = [ln for ln in lines if recertified(ln)]
+                rep["view_change_errors"] += len(excused)
+                lines = [ln for ln in lines if ln not in excused]
+            if lines:
+                errs[name] = lines[:3]
+    rep["phase_s"] = time.time() - t0
+    rep["ledgers"] = ledgers
+    check(not errs, f"recovery soak: ERROR records {errs}")
+    # A replica may still be behind when the cluster stops (the client
+    # finishes on f + 1 REPLYs): every replica that executed every request
+    # and the bench's warmup must hold one digest, and f + 1 must have.
+    full = [lg[0]["digest"] for lg in ledgers if lg[0]["length"] == rep["requested"] + 1]
+    check(len(full) >= 2 and len(set(full)) == 1,
+          f"recovery soak: ledgers {ledgers} (want {rep['requested']} requests and the "
+          "warmup on f + 1 replicas at least, one digest)")
+    check(rep["phase_s"] <= SOAK_BUDGET_S,
+          f"recovery soak: {rep['phase_s']:.1f} s, past its {SOAK_BUDGET_S:.0f} s budget")
+    check(rep["committed"] == rep["requested"] == requests // 6 * 6,
+          f"recovery soak: {rep['committed']} of {rep['requested']} committed")
+    check(rep["restored_count"] > 0 and 0 < rep["chaos_recovery_time_ms"] < float("inf"),
+          f"recovery soak: restored {rep['restored_count']}, recovery "
+          f"{rep['chaos_recovery_time_ms']} ms")
+    check(3 in rep["stores"] and sorted(rep["census"]) == [0, 1, 2, 3],
+          f"recovery soak: stores {sorted(rep['stores'])}, census {sorted(rep['census'])}")
+    check(sorted(rep["engines"], key=str) == sorted([0, 1, 2, 3, "client"], key=str),
+          f"recovery soak: engine reports {sorted(rep['engines'], key=str)}")
+    launches: dict = {}
+    for who, eng in rep["engines"].items():
+        faults = bench.engine_faults(eng, "cuda:0")
+        check(not faults, f"recovery soak {who}: {'; '.join(faults)}")
+        for kid, v in eng["launches"].items():
+            launches[kid] = launches.get(kid, 0) + v
+    rep["contexts"] = sum(bool(eng["cuda_context"]) for eng in rep["engines"].values())
+    rep["launches"] = launches
+    return rep
 
 
 # Phases 2-4, 6 and 7: kernels against their plain versions.
@@ -2835,7 +2925,37 @@ def main() -> int:
           f"{extras.get('load_over_goodput_fraction')}; launches {win}")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 18")
-    # -- phase 18 ----------------------------------------------------------------
+    # -- phase 18: the crash-recovery soak on the card ---------------------------
+    # Every count is the processes' own, from their engine reports (the
+    # restarted replica's second instance; the killed one reports none).
+    soak = run_soak(bench)
+    counts = {kid: 0 for kid in wrappers}
+    counts.update({k: v for k, v in soak["launches"].items() if k in counts})
+    check(counts["K2"] > 0 and counts["K3"] > 0, f"recovery_soak: launches {counts}")
+    path_launches["recovery_soak"] = counts
+    print(f"recovery_soak (n=4, SOFT_ECDSA, TCP, 6 clients x depth 4, chaos seed "
+          f"{bench.RECOVERY_SEED:#x} plan {soak['chaos_plan']}, kill -9 of replica 3, engines on "
+          f"cuda:0): {soak['committed']} of {soak['requested']} requests committed, "
+          f"goodput {soak['chaos_recovery_goodput_per_sec']} req/s; restored at count "
+          f"{soak['restored_count']}; restart_to_listen_ms {soak['restart_to_listen_ms']}, "
+          f"chaos_recovery_time_ms {soak['chaos_recovery_time_ms']}, wall_recovery_ms "
+          f"{soak['wall_recovery_ms']}, drain_margin_ms {soak['drain_margin_ms']}; CUDA "
+          f"contexts reported {soak['contexts']} (4 "
+          f"replicas, the restarted one's second instance, and 1 client process; the "
+          f"killed instance reports none); phase {soak['phase_s']:.1f} s of its "
+          f"{SOAK_BUDGET_S:.0f} s budget; ERROR records of re-certified counts "
+          f"{soak['view_change_errors']}; launches {counts}; on {name_power}")
+    check(soak["contexts"] == 5, f"recovery_soak: {soak['contexts']} CUDA contexts reported")
+    for who, eng in soak["engines"].items():
+        print(f"recovery_soak {who} engine: verify "
+              f"{ {k: (q['items'], q['batches']) for k, q in eng['verify'].items()} } "
+              f"sign { {k: (q['items'], q['batches']) for k, q in eng['sign'].items()} } "
+              f"(items, batches); launches {eng['launches']}")
+    for i, census in sorted(soak["census"].items()):
+        print(f"recovery_soak replica {i} fault census {census} (= the replay of the seed)")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 19")
+    # -- phase 19 ----------------------------------------------------------------
     meta = {
         "K1": ("field_op (csrc/field.cuh, p256_field.cuh and ed25519_field.cuh libraries)",
                "minbft_tpu_torch/csrc/field.cuh", "minbft_tpu/ops/limbs.py:335"),

@@ -62,9 +62,17 @@ reference's ``load_*`` keys and ``MINBFT_LOAD_*`` knobs), each with its
 engine on ``--device``; a failed point fails the section.  They join the
 default run on the card only.
 
-Left out (ROADMAP.md queue 1, each with the module it waits for):
-``bench_groups_chips`` and ``use_mesh`` (the multi-GPU pool) and
-``bench_recovery`` (the recovery soak).  Dropped
+Crash recovery (since ``testing/recovery_soak.py`` was ported):
+``recovery`` (``bench_recovery``: one kill -9 soak of real ``peer run``
+processes, n = 4, SOFT_ECDSA USIGs, TCP, 6 clients x depth 4 under the
+pinned chaos seed, every process's engine on ``--device``), the
+reference's seven ``chaos_recovery_*`` keys,
+``chaos_recovery_restart_to_listen_ms`` and
+``chaos_recovery_drain_margin_ms``; it joins the default run on the
+card only, and a failed soak fails the section.
+
+Left out (ROADMAP.md queue 1, with the module they wait for):
+``bench_groups_chips`` and ``use_mesh`` (the multi-GPU pool).  Dropped
 as JAX- or TPU-only: the lowering modes and ``*_mode`` keys, the compile
 cache keys, ``tpu_unavailable``, the ``last_tpu`` carry-forward, the TPU
 ceiling and the ``vs_baseline`` ratio.
@@ -93,6 +101,7 @@ import numpy as np
 import torch
 
 from .ops import backend, limbs
+from .testing.recovery_soak import read_engine_report
 from .utils.netports import free_base_port as _free_base_port
 from .utils.netports import wait_ports as _wait_ports
 
@@ -110,7 +119,7 @@ SIGN_QUEUE_BUCKET = 2048
 CFG4_BUCKET = 128
 
 SECTIONS = (
-    "kernels", "e2e", "ingest", "readonly", "groups", "load", "nodedup",
+    "kernels", "e2e", "ingest", "readonly", "groups", "load", "recovery", "nodedup",
     "nodedupref", "cfg1", "cfg2", "cfg4", "mac", "cfg5", "iso", "mp", "mptcp",
 )
 # The in-process configurations past e2e, and the multi-process runs.
@@ -955,15 +964,6 @@ class ProcessSampler:
                 if p in a and p in b]
 
 
-def _read_replica_engine(log_path: str) -> "dict | None":
-    """The engine report a replica prints at a clean shutdown."""
-    with open(log_path, errors="replace") as fh:
-        for line in fh:
-            if " engine {" in line and line.startswith("replica "):
-                return json.loads(line.split(" engine ", 1)[1])
-    return None
-
-
 def _error_lines(log_path: str, limit: int) -> list:
     """The ERROR records in the first ``limit`` bytes of a log."""
     with open(log_path, "rb") as fh:
@@ -1133,7 +1133,7 @@ def _bench_mp_cluster(
             errs = _error_lines(path, served[i])
             if errs:
                 raise BenchError(f"mp replica {i} logged ERROR: {errs[:3]}")
-            rep = _read_replica_engine(path)
+            rep = read_engine_report(path)
             if rep is None:
                 raise BenchError(f"mp replica {i} printed no engine report")
             engines.append((f"replica {i}", rep))
@@ -1703,6 +1703,58 @@ def bench_load(device=None) -> dict:
     return out
 
 
+# The soak's shape, the reference's (its ``bench_recovery`` and its slow
+# ``test_pinned_seed_recovery_soak``): n = 4, 6 clients x depth 4,
+# checkpoint period 4, 2,048-byte chunks, a 0.5 s outage; shared with
+# ``chip_smoke.py`` phase 18 and the tests.
+RECOVERY_SOAK = dict(replicas=4, clients=6, depth=4, checkpoint_period=4,
+                     chunk_bytes=2048, down_s=0.5)
+RECOVERY_SEED = 0x2020C0FFEE
+# Requests of the soak: the reference's 198 outlive a restart only at its
+# host-crypto rate (~5.5 req/s); with every engine on the card the load
+# must outlive the restarted process's CUDA context and engine, then its
+# catch-up (PERF.md section 4 has the sizing and the runs behind it).
+RECOVERY_REQUESTS_HOST = 198
+RECOVERY_REQUESTS_CARD = 6_000
+
+
+def bench_recovery(device=None) -> dict:
+    """Crash-recovery soak headline: one
+    :func:`~minbft_tpu_torch.testing.recovery_soak.run_recovery_soak`
+    round of ``RECOVERY_SOAK`` under the seeded chaos wrap,
+    ``MINBFT_BENCH_RECOVERY_SEED`` (default ``RECOVERY_SEED``) and
+    ``MINBFT_BENCH_RECOVERY_REQUESTS`` (default ``RECOVERY_REQUESTS_CARD``
+    on the card, the reference's 198 otherwise), every replica's and the
+    client's engine on ``device`` (None: host crypto, ``--no-batch``).
+    The soak raises on any acceptance miss, so a number here means the run
+    passed; unlike the reference, which logs a failed soak and goes on,
+    the failure fails the section."""
+    import tempfile
+
+    from .testing.recovery_soak import run_recovery_soak
+
+    if device is not None:
+        device = str(backend.resolve_device(device))
+    on_card = device is not None and device.startswith("cuda")
+    seed = int(os.environ.get("MINBFT_BENCH_RECOVERY_SEED", hex(RECOVERY_SEED)), 0)
+    requests = _env_int("MINBFT_BENCH_RECOVERY_REQUESTS",
+                        RECOVERY_REQUESTS_CARD if on_card else RECOVERY_REQUESTS_HOST)
+    with tempfile.TemporaryDirectory(prefix="minbft-torch-recovery-") as wd:
+        rep = run_recovery_soak(wd, requests=requests, chaos_seed=seed, device=device,
+                                **RECOVERY_SOAK)
+    return {
+        "chaos_recovery_time_ms": rep["chaos_recovery_time_ms"],
+        "chaos_recovery_goodput_per_sec": rep["chaos_recovery_goodput_per_sec"],
+        "chaos_recovery_restored_count": rep["restored_count"],
+        "chaos_recovery_wall_ms": rep["wall_recovery_ms"],
+        "chaos_recovery_seed": hex(seed),
+        "chaos_recovery_requests": rep["requested"],
+        "chaos_recovery_census_ok": bool(rep.get("census")),
+        "chaos_recovery_restart_to_listen_ms": rep["restart_to_listen_ms"],
+        "chaos_recovery_drain_margin_ms": rep["drain_margin_ms"],
+    }
+
+
 def _device_stamp(dev: torch.device) -> dict:
     if dev.type != "cuda":
         return {"backend": "cpu", "device": "cpu", "power_limit": None}
@@ -1775,16 +1827,18 @@ def main(argv=None) -> int:
             want.add("readonly")
         if all_configs and not skip("NODEDUP"):
             want |= {"nodedup", "nodedupref"}
-        # The multi-process runs, the groups sweep and the load curve join
-        # the default run on the card only: on the CPU they would run the
-        # plain versions for minutes (seconds per K2 dispatch); named,
-        # they run there too.
+        # The multi-process runs, the groups sweep, the load curve and the
+        # recovery soak join the default run on the card only: on the CPU
+        # they would run the plain versions for minutes (seconds per K2
+        # dispatch); named, they run there too.
         if not on_cpu and not skip("MP"):
             want |= set(MP_SECTIONS)
         if not on_cpu and not skip("GROUPS"):
             want.add("groups")
         if not on_cpu and not skip("LOAD"):
             want.add("load")
+        if not on_cpu and not skip("RECOVERY"):
+            want.add("recovery")
         if all_configs and not skip("CONFIGS"):
             want |= set(CONFIG_SECTIONS)
     produced: dict = {}
@@ -1847,6 +1901,8 @@ def main(argv=None) -> int:
     section("groups", lambda: bench_groups(
         _env_int("MINBFT_BENCH_GROUPS_REQUESTS", 8 if on_cpu else 400), device=dev))
     section("load", lambda: bench_load(device=dev))
+    # The crash-recovery soak: n = 4 processes, one kill -9 mid-load.
+    section("recovery", lambda: bench_recovery(device=dev))
     cluster("nodedup", 7, 3, _env_int("MINBFT_BENCH_NODEDUP_REQUESTS", 2000),
             n_clients=min(n_clients, 50), usig_kind="ecdsa", prefix="nodedup",
             no_dedup=True, runs=1)
@@ -1887,7 +1943,7 @@ def main(argv=None) -> int:
         "power_limit", "_util_", "queue_depth_peak", "dispatch_timeouts",
         "cpu_per_wall", "cuda_contexts", "cuda_reserved_mib", "context_mib",
         "gpu_memory_mib", "_launches", "reads_per_sec", "ingest_batch_mean",
-        "verify_mean_batch", "goodput_per_sec", "peak_per_sec",
+        "verify_mean_batch", "goodput_per_sec", "peak_per_sec", "chaos_recovery_",
     )
     compact = {k: extras[k] for k in sorted(extras) if any(p in k for p in keep)}
     print(json.dumps({"bench_extras": compact}))

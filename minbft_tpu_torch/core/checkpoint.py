@@ -231,13 +231,20 @@ class CheckpointCollector:
                 # hard evidence of a diverged state machine or a lying
                 # replica — surface it as loudly as pre-stability
                 # divergence.
+                # Each side's view and cv: a view change re-certifies
+                # one state under another digest (the digest covers the
+                # view), while a conflict inside one view is a fork.
                 self.log.error(
                     "checkpoint divergence at stable count %d: replica %d "
-                    "certified %s vs stable %s",
+                    "certified %s in view %d cv %d vs stable %s in view %d cv %d",
                     cp.count,
                     cp.replica_id,
                     cp.digest.hex()[:16],
+                    cp.view,
+                    cp.cv,
                     self.stable_digest.hex()[:16],
+                    self.stable_view,
+                    self.stable_cv,
                 )
             return False
         prev = self._claims.get(cp.replica_id)
@@ -251,17 +258,20 @@ class CheckpointCollector:
             if (c.count, c.view, c.cv, c.digest) == key
         ]
         divergent = sorted(
-            c.replica_id
+            (c.replica_id, c.view, c.cv)
             for c in self._claims.values()
             if c.count == cp.count
             and (c.view, c.cv, c.digest) != (cp.view, cp.cv, cp.digest)
         )
         if divergent and self.log is not None:
             self.log.error(
-                "checkpoint divergence at count %d: %s vs replicas %s",
+                "checkpoint divergence at count %d: %s in view %d cv %d "
+                "vs replicas %s",
                 cp.count,
                 cp.digest.hex()[:16],
-                divergent,
+                cp.view,
+                cp.cv,
+                ", ".join(f"{r} in view {v} cv {c}" for r, v, c in divergent),
             )
         if len(matching) < self.f + 1:
             return False

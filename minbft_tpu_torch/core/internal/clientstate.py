@@ -245,6 +245,15 @@ class ClientState:
             self._last_captured = top
         if self._last_prepared < top:
             self._last_prepared = top
+        # The cluster executed these seqs (the certificate vouches for the
+        # state that retires them), so their watchdogs are done: left
+        # running, a replica that caught up by state transfer times out
+        # on requests already served and demands a view change (the
+        # recovery soak's lagging primary did, one request timeout after
+        # its install).  The reference's install leaves them running.
+        for timers in (self._request_timers, self._prepare_timers):
+            for seq in [s for s in timers if self._is_retired(s)]:
+                self._stop_timer(timers, seq)
 
     # -- reply buffer --------------------------------------------------------
 

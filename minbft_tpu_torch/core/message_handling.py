@@ -1676,10 +1676,26 @@ class Handlers:
             checkpoint_mod.checkpoint_digest(app_digest, count, view, cv, marks)
             != coll.stable_digest
         ):
+            # The digest covers the view and cv, so a count executed here
+            # in one view and certified in another never matches; whether
+            # the state itself matches tells a view change's
+            # re-certification from a diverged state machine.
+            same = (
+                checkpoint_mod.checkpoint_digest(
+                    app_digest, count, coll.stable_view, coll.stable_cv, marks
+                )
+                == coll.stable_digest
+            )
             self.log.error(
                 "local snapshot at %d diverges from the stable digest — "
-                "not persisting",
+                "not persisting (executed in view %d cv %d, certified in "
+                "view %d cv %d: %s state)",
                 count,
+                view,
+                cv,
+                coll.stable_view,
+                coll.stable_cv,
+                "the same" if same else "another",
             )
             return
         state = recovery_store.StableState(

@@ -35,6 +35,7 @@ import dataclasses
 import hashlib
 import os
 import struct
+import threading
 from typing import Optional, Tuple
 
 from ..messages import Checkpoint, CodecError, marshal, unmarshal
@@ -175,17 +176,27 @@ class DurableStore:
     ``save``/``load`` do blocking file IO by design — callers on the event
     loop wrap them in ``asyncio.to_thread`` (saves are off-path at
     checkpoint cadence; the single startup load happens before serving).
+    Saves hold a lock: stable checkpoints that come faster than a save
+    runs put several saves on worker threads at once, and unserialised
+    they shared the one temp file (the later ``os.replace`` found it gone)
+    and could each pass the count check, so a lower count could land
+    last.  The reference's store has no lock.
     """
 
     def __init__(self, path: str, replica_id: int) -> None:
         self.path = path
         self.replica_id = replica_id
         self._last_count: Optional[int] = None
+        self._save_lock = threading.Lock()
 
     def save(self, state: StableState) -> bool:
         """Persist ``state`` atomically.  Returns False (no write) when the
         file already holds an equal-or-newer stable count — the durable
         bound never regresses."""
+        with self._save_lock:
+            return self._save(state)
+
+    def _save(self, state: StableState) -> bool:
         if self._last_count is None and os.path.exists(self.path):
             # First save of this process over an existing file: learn the
             # incumbent bound so a restarted replica that briefly lags its

@@ -1,6 +1,7 @@
 """Deterministic fault injection, Byzantine adversaries, and safety
 invariants: the port's copy of :mod:`minbft_tpu.testing` (its exports;
-``recovery_soak`` is not ported yet).
+the crash-recovery soak is :mod:`~minbft_tpu_torch.testing.recovery_soak`,
+imported by its callers, as in the reference).
 
 Three modules, usable from tests AND from the ``peer selftest
 --chaos-seed`` CLI smoke path:

@@ -317,7 +317,7 @@ def test_run_metrics_port_under_chaos_scraped_by_peer_metrics_top_and_slo(tmp_pa
     replica's scraped fault census equals the reference's
     ``FaultNet.replay_counts`` of the seed over the scraped frame
     counts; SIGTERM stops each replica with exit code 0."""
-    from chip_smoke import census_from_scrape, metrics_port
+    from minbft_tpu_torch.testing.recovery_soak import _census_from_scrape, _metrics_port
     from minbft_tpu.testing import FaultNet as RefFaultNet
     from minbft_tpu.testing import plan_from_spec as ref_plan
     from minbft_tpu_torch.obs.prom import parse_exposition, scrape
@@ -343,7 +343,7 @@ def test_run_metrics_port_under_chaos_scraped_by_peer_metrics_top_and_slo(tmp_pa
                         "--no-batch", "--metrics-port", "0"],
                 env=chaos_env, stdout=subprocess.DEVNULL, stderr=logs[i]))
         assert wait_ports([base + i for i in range(3)], timeout=60)
-        addrs = [f"127.0.0.1:{metrics_port(f'{d}/r{i}.log', 60)}" for i in range(3)]
+        addrs = [f"127.0.0.1:{_metrics_port(f'{d}/r{i}.log', 0, 60)}" for i in range(3)]
         client = peer + ["--keys", f"{d}/keys.yaml", *common]
         res = subprocess.run(client + ["request", "--no-batch", "--timeout", "60",
                                        "metrics-op"], env=env, capture_output=True,
@@ -374,7 +374,7 @@ def test_run_metrics_port_under_chaos_scraped_by_peer_metrics_top_and_slo(tmp_pa
         assert [t["addr"] for t in json.loads(res.stdout)["targets"]] == addrs
         plan = ref_plan("lossy")
         for i, addr in enumerate(addrs):
-            census = census_from_scrape(parse_exposition(scrape(addr)))
+            census = _census_from_scrape(parse_exposition(scrape(addr)))
             want = RefFaultNet(seed=0x5EED, default_plan=plan).replay_counts(
                 census["frames"], plan=plan)
             assert census["seeded"] == want and sum(census["frames"].values()) > 0
