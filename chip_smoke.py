@@ -198,7 +198,26 @@ that does not hold:
    ``chaos_recovery_time_ms``, ``wall_recovery_ms``, the drain margin
    (the load left after the restarted replica's first execution), the
    goodput and the CUDA contexts, beside the card's name and power limit;
-19. one JSON line of per-kernel numbers (launches, parity, times, bounds).
+19. the batch split and the engine pool (``parallel/mesh.py``,
+   ``parallel/pool.py``), rehearsed over the one card named twice
+   (``REHEARSAL_DEVICES``), inside a budget of ``POOL_BUDGET_S``: the five
+   sharded kernels (K2, K3, K6, K7, K8 split in two) on phases 3, 4, 6
+   and 7's rows at the deployment bucket (1,024 for Ed25519), adversarial
+   and padding lanes included, equal to one launch lane for lane and bit
+   for bit from device and host rows, one counted launch a chunk, each
+   call's ms beside one launch's; an ``EnginePool(chips=1)`` against a
+   bare engine on cuda:0 over the same ECDSA, HMAC and Ed25519 verify
+   items and sign items (verdicts, signatures, per-queue stats and
+   launches equal); ``parallel.dryrun.dryrun_multichip`` at bucket 512
+   (the split K2 and K6, an uneven-bucket mesh engine, an n = 4 grouped
+   cluster of C = 2 pools, ``POOL_REQUESTS_PER_GROUP`` requests a group,
+   then an oversized batch through a group's facade onto the striped
+   engine), both chip engines launching K6, no dispatch timed out, no
+   ERROR record, and ``collect_engine_pool`` reading 2 chips, both up;
+   then the bench's ``groups_chips`` grid cut to G = 2 (C clamped to the
+   visible cards), every key present, every census the seed's replay and
+   K6 launched in its window;
+20. one JSON line of per-kernel numbers (launches, parity, times, bounds).
 
 Each phase's start is printed with the seconds since the smoke began.
 Kernel times are CUDA-event medians: ``ms`` brackets one wrapper call
@@ -347,7 +366,7 @@ UTIL_SUFFIXES = {
 }
 
 
-def bench_expected_keys(section: str) -> set:
+def bench_expected_keys(section: str, points=((2, 1),)) -> set:
     """The keys the reference's bench.py emits for ``section``'s functions
     or configuration prefix (one timed run, the SLO run), less the ones it
     emits only for the TPU (``*_mode``, the compile cache, ``last_tpu``).
@@ -393,6 +412,23 @@ def bench_expected_keys(section: str) -> set:
             "load_probe_census_ok", "load_probe_goodput_per_sec", "load_probe_shed",
             "load_probe_busy_sent", "load_probe_busy_received", "load_probe_timeouts",
             "load_probe_rx_peak", "load_peak_per_sec", "load_over_goodput_fraction"}
+    if section == "groups_chips":
+        # bench_groups_chips' keys at each (G, C) point of ``points``:
+        # every chip of a point holds groups when G >= C.
+        keys = {"groups_chips_grid_Gs", "groups_chips_grid_chips",
+                "groups_chips_requested_chips", "groups_chips_devices_visible"}
+        run = {"offered_per_sec", "goodput_per_sec", "p50_ms", "p99_ms", "finality_p99_ms",
+               "slo_good_fraction", "census_ok", "shed", "busy_sent"}
+        chip = {"util_busy", "util_fill", "util_lanes_useful", "util_lanes_padding",
+                "util_lanes_memo", "util_lanes_fallback"}
+        for G, C in points:
+            p = f"groups{G}x{C}"
+            keys |= {f"{p}_load_burst_peak_per_sec", f"{p}_chips", f"{p}_placement",
+                     f"{p}_verify_mean_batch"}
+            keys |= {f"{p}_load_{t}_{s}" for t in ("sat", "over") for s in run}
+            keys |= {f"{p}_{s}" for s in UTIL_SUFFIXES}
+            keys |= {f"{p}_chip{c}_{s}" for c in range(min(G, C)) for s in chip}
+        return keys
     if section in ("mp", "mptcp"):
         # _bench_mp_cluster's keys and _bench_mp_repeated's.
         suffixes = {
@@ -1278,6 +1314,15 @@ LOAD_TIMEOUT_S = 240.0
 # ``bench.RECOVERY_SOAK`` at its count on the card), in a budget of its own.
 SOAK_BUDGET_S = 180.0
 
+# Phase 19 (the batch split and the engine pool): the card named twice
+# (the two-device rehearsal on a one-GPU machine), the dry run's requests
+# to each of its two groups, the grid's requests a run (probe, SAT, OVER)
+# and the phase's budget.
+REHEARSAL_DEVICES = ("cuda:0", "cuda:0")
+POOL_REQUESTS_PER_GROUP = 200
+GRID_REQUESTS = 400
+POOL_BUDGET_S = 120.0
+
 
 def executed_by_group(fams: dict) -> dict:
     """{group label: requests executed} from one grouped scrape."""
@@ -1753,6 +1798,205 @@ def run_soak(bench) -> dict:
 # Phases 2-4, 6 and 7: kernels against their plain versions.
 
 
+def run_pool_phase(torch, bench, name_power: str, split_rows: dict, work: tuple,
+                   reset_counts, read_counts, path_launches: dict) -> dict:
+    """Phase 19: the batch split and the engine pool on the card, rehearsed
+    over ``REHEARSAL_DEVICES``.  ``split_rows`` holds each split kernel's
+    rows on cuda:0 (K2, K3, K6, K7, K8), ``work`` the C = 1 identity's
+    ECDSA, HMAC and Ed25519 verify items and ECDSA and Ed25519 sign items.
+    Adds the pool paths' launch counts to ``path_launches`` and returns
+    each kernel's split output, for the caller to hold against its own
+    phase."""
+    from minbft_tpu_torch.obs.prom import collect_engine_pool
+    from minbft_tpu_torch.ops import ed25519, hmac_sha256, p256
+    from minbft_tpu_torch.parallel import BatchVerifier, EnginePool
+    from minbft_tpu_torch.parallel import mesh as mesh_mod
+    from minbft_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    # One card named twice: the rehearsal of two devices on a one-GPU
+    # machine (each chunk runs on cuda:0 in turn).
+    mesh2 = mesh_mod.make_mesh(REHEARSAL_DEVICES)
+    # (a) Each sharded kernel on the phase's own rows at the deployment
+    # bucket (1,024 for Ed25519): the adversarial and padding lanes of
+    # phases 3, 4, 6 and 7 included.  These launches hold the split
+    # against one launch and are counted in no path.
+    split_cases = (
+        ("K2", mesh_mod.sharded_ecdsa_kernel, p256.ecdsa_verify_kernel_packed),
+        ("K3", mesh_mod.sharded_ecdsa_sign_kernel, p256.ecdsa_kg_kernel),
+        ("K6", mesh_mod.sharded_hmac_kernel, hmac_sha256.hmac_verify_kernel_packed),
+        ("K7", mesh_mod.sharded_ed25519_kernel, ed25519.ed25519_verify_kernel_packed),
+        ("K8", mesh_mod.sharded_ed25519_sign_kernel, ed25519.ed25519_rb_kernel),
+    )
+    outputs = {}
+    for kid, make_split, kernel in split_cases:
+        rows_d = split_rows[kid]
+        split = make_split(mesh2)
+        before = kernel.launches
+        got = split(rows_d)
+        check(kernel.launches - before == 2,
+              f"{kid} split: {kernel.launches - before} launches counted, not one a chunk")
+        got_host = split(rows_d.cpu())  # host rows, as the engine feeds it
+        want = kernel(rows_d).cpu()
+        for form, out in (("device", got), ("host", got_host)):
+            check(out.dtype == want.dtype and out.shape == want.shape
+                  and torch.equal(out, want),
+                  f"{kid} split over {mesh2} ({form} rows) differs from one launch")
+        outputs[kid] = got
+        bsz = rows_d.shape[0]
+        one = cuda_ms(torch, lambda: kernel(rows_d).cpu())
+        two = cuda_ms(torch, lambda: split(rows_d))
+        print(f"{kid} split over {mesh2} at B={bsz}: equal to one launch on every lane "
+              f"({'bit for bit' if want.dim() > 1 else 'verdicts'}), from device and host "
+              f"rows; {two:.3f} ms per call (two {bsz // 2}-lane launches and their "
+              f"readbacks) beside {one:.3f} ms for one {bsz}-lane launch and its readback "
+              f"(CUDA-event medians, not a scaling figure: one card); on {name_power}")
+
+    # (b) The C = 1 pool is the bare engine: same verdicts, signatures,
+    # per-queue stats and launches over the same items.
+    def drive(eng):
+        async def go():
+            v_ecdsa, v_hmac, v_ed, s_ecdsa, s_ed = work
+            return (
+                await eng.verify_ecdsa_p256_many(v_ecdsa),
+                list(await asyncio.gather(*[eng.verify_hmac_sha256(*it) for it in v_hmac])),
+                await eng.verify_ed25519_many(v_ed),
+                list(await asyncio.gather(*[eng.sign_ecdsa_p256(*it) for it in s_ecdsa])),
+                list(await asyncio.gather(*[eng.sign_ed25519(*it) for it in s_ed])),
+            )
+        return asyncio.run(go())
+
+    def queue_census(eng) -> dict:
+        fields = ("items", "batches", "max_batch_seen", "padded_lanes", "dispatch_timeouts",
+                  "flush_reasons", "occupancy")
+        out = {f"verify:{q}": [getattr(st, k) for k in fields] + [st.memo_hits]
+               for q, st in eng.stats.items()}
+        out.update({f"sign:{q}": [getattr(st, k) for k in fields] + [st.host_fallback_items]
+                    for q, st in eng.sign_stats.items()})
+        return out
+
+    identity = {}
+    card = REHEARSAL_DEVICES[0]
+    for label, make in (("bare", lambda: BatchVerifier(max_batch=512, buckets=(512,),
+                                                         device=card)),
+                        ("pool", lambda: EnginePool(chips=1, devices=[card],
+                                                    max_batch=512, buckets=(512,)))):
+        eng = make()
+        front = eng.engine_for(0) if label == "pool" else eng
+        reset_counts()
+        # The C = 1 path: every count moves only from here ...
+        results = drive(front)
+        # ... to here.
+        identity[label] = (results, queue_census(eng), read_counts())
+    path_launches["pool_c1"] = identity["pool"][2]
+    for part, what in enumerate(("ECDSA verdicts", "HMAC verdicts", "Ed25519 verdicts",
+                                 "ECDSA signatures", "Ed25519 signatures")):
+        check(identity["bare"][0][part] == identity["pool"][0][part],
+              f"C = 1 pool: {what} differ from the bare engine's")
+    check(identity["bare"][1] == identity["pool"][1],
+          f"C = 1 pool: queue stats {identity['pool'][1]} != {identity['bare'][1]}")
+    check(identity["bare"][2] == identity["pool"][2],
+          f"C = 1 pool: launches {identity['pool'][2]} != {identity['bare'][2]}")
+    c1 = identity["pool"]
+    print(f"pool_c1 (EnginePool(chips=1) on {card} against a bare BatchVerifier on {card}): "
+          + ", ".join(f"{sum(v)}/{len(v)} {what}" for v, what in zip(
+              c1[0][:3], ("ECDSA", "HMAC", "Ed25519")))
+          + f" accepted, {len(c1[0][3])} + {len(c1[0][4])} signatures, all equal; "
+          f"per-queue stats equal "
+          f"{ {q: v[:2] for q, v in c1[1].items()} } (items, batches); launches equal "
+          f"{c1[2]}")
+
+    # (c) The dry run over the card named twice, at the deployment bucket:
+    # the split K2 and K6, an uneven-bucket mesh engine, then the grouped
+    # n = 4 cluster whose replicas each hold a C = 2 pool, then one
+    # oversized batch through a group's facade onto the striped engine.
+    with _ErrorRecords() as errors:
+        reset_counts()
+        # The dry run: every count moves only from here ...
+        dry = dryrun_multichip(REHEARSAL_DEVICES, batch=512,
+                               requests_per_group=POOL_REQUESTS_PER_GROUP, n_clients=4)
+        # ... to here.
+        win = read_counts()
+    path_launches["pool_dryrun"] = win
+    check(not errors, f"pool_dryrun: ERROR records {errors[:5]}")
+    pools = dry["pools"]
+    for i, pool in enumerate(pools):
+        for c, eng in enumerate(pool.engines):
+            st = eng.stats.get("hmac_sha256")
+            check(st is not None and st.batches > 0,
+                  f"pool_dryrun: replica {i} chip {c} engine launched no K6")
+    stripe = pools[0].striped_engine.stats.get("ecdsa_p256")
+    check(stripe is not None and stripe.batches >= 1 and win["K2"] > 0,
+          "pool_dryrun: the striped engine launched no split kernel")
+    timeouts = sum(st.dispatch_timeouts for pool in pools
+                   for eng in (*pool.engines, pool.striped_engine)
+                   for st in (*eng.stats.values(), *eng.sign_stats.values()))
+    check(timeouts == 0, f"pool_dryrun: {timeouts} dispatch timeouts")
+    check(win["K6"] > 0, f"pool_dryrun: K6 was not launched {win}")
+    fams = {fam[0]: fam for fam in collect_engine_pool(pools[0])}
+    check(fams["minbft_engine_pool_chips"][3][0][1] == 2, "pool_dryrun: scrape reads "
+          f"{fams['minbft_engine_pool_chips'][3]} chips")
+    ups = {lb["chip"]: v for lb, v in fams["minbft_engine_pool_chip_up"][3]}
+    check(ups == {"0": 1, "1": 1}, f"pool_dryrun: chip_up {ups}")
+    per_chip = {c: (eng.stats["hmac_sha256"].items, eng.stats["hmac_sha256"].batches)
+                for c, eng in enumerate(pools[0].engines)}
+    print(f"pool_dryrun ({dry['devices']}, bucket {dry['batch']}; n=4, MACs, HMAC USIGs, "
+          f"{dry['groups']} groups, {dry['requests']} requests from 4 clients): every request "
+          f"committed, per-group ledgers equal on every replica {dry['ledgers'][0]}; "
+          f"placement {dry['placement']}; replica 0's chips' K6 queues {per_chip} (items, "
+          f"batches); {dry['stripe_items']} items through the striped engine "
+          f"({stripe.batches} batch, two chunks); scrape: chips 2, chip_up {ups}; cluster "
+          f"{dry['cluster_s']:.1f} s, dry run {dry['seconds']:.1f} s; launches {win}; "
+          f"on {name_power}")
+
+    # (d) The bench's (G, C) grid, cut to G = 2 and C as clamped (1 on a
+    # one-GPU machine).
+    os.environ.update(MINBFT_BENCH_GRID_GS="2", MINBFT_BENCH_GRID_CHIPS="1,2",
+                      MINBFT_BENCH_GRID_REQUESTS=str(GRID_REQUESTS))
+    for knob in ("MINBFT_LOAD_SEED", "MINBFT_BENCH_GRID_CLIENTS", "MINBFT_LOAD_PROBE_RATE"):
+        os.environ.pop(knob, None)
+    out = io.StringIO()
+    with _ErrorRecords() as errors:
+        reset_counts()
+        # The bench's groups_chips section: every count moves only from here ...
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = bench.main(["--device", REHEARSAL_DEVICES[0], "groups_chips"])
+        except Exception as e:  # the bench's own failure, reported
+            fail(f"bench_groups_chips: {type(e).__name__}: {e}")
+        # ... to here.
+        win = read_counts()
+    path_launches["bench_groups_chips"] = win
+    check(rc == 0, f"bench_groups_chips: exit code {rc}")
+    check(not errors, f"bench_groups_chips: ERROR records {errors[:5]}")
+    with open(os.path.join(bench.OUT_DIR, "extras.json")) as fh:
+        extras = json.load(fh)
+    grid_c = extras["groups_chips_grid_chips"]
+    missing = sorted(bench_expected_keys("groups_chips", points=[(2, c) for c in grid_c])
+                     - set(extras))
+    check(not missing, f"bench_groups_chips: keys missing {missing}")
+    check(all(extras[f"groups2x{c}_load_{t}_census_ok"] for c in grid_c
+              for t in ("sat", "over")), "bench_groups_chips: a census is not the seed's replay")
+    check(win["K6"] > 0, f"bench_groups_chips: K6 was not launched {win}")
+    for c in grid_c:
+        p = f"groups2x{c}"
+        print(f"bench_groups_chips {p} (chips requested 1,2, built {extras[f'{p}_chips']} of "
+              f"{extras['groups_chips_devices_visible']} visible): burst peak "
+              f"{extras[f'{p}_load_burst_peak_per_sec']}/s; sat offered "
+              f"{extras[f'{p}_load_sat_offered_per_sec']}/s goodput "
+              f"{extras[f'{p}_load_sat_goodput_per_sec']}/s p50 "
+              f"{extras[f'{p}_load_sat_p50_ms']} ms p99 {extras[f'{p}_load_sat_p99_ms']} ms; "
+              f"over goodput {extras[f'{p}_load_over_goodput_per_sec']}/s; K6 mean batch "
+              f"{extras[f'{p}_verify_mean_batch']}, pool busy {extras[f'{p}_util_busy']}; "
+              f"placement {extras[f'{p}_placement']}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 19: {phase_s:.1f} s of its {POOL_BUDGET_S:.0f} s budget; launches "
+          f"{win}; on {name_power}")
+    check(phase_s <= POOL_BUDGET_S,
+          f"phase 19: {phase_s:.1f} s, past its {POOL_BUDGET_S:.0f} s budget")
+    return outputs
+
+
 def verify_items(hc, rng, keys, count: int):
     """``count`` verify items with distinct digests: honest lanes signed
     by the port's sign_batch on the card, lanes 0-2 under the keys Q = G,
@@ -2134,6 +2378,7 @@ def main() -> int:
             ptx["p256_kg"], "p256_kg_kernel")
         if bsz == 512:
             k3_plain_ms = cuda_ms(torch, lambda: p256.kg_plain(k_d, table_d), reps=2, warm=1)
+            k3_nonces = k_d  # phase 19 splits these over two devices
     every_group_picked("K3", k3_groups)
     kernels["K3"] = kernel_entry(k3, 512, k3_plain_ms, groups=k3_groups)
     print(f"K3 plain B=512: {k3_plain_ms:.1f} ms")
@@ -2357,6 +2602,7 @@ def main() -> int:
         if bsz == 1024:
             k8_plain_ms = cuda_ms(torch, lambda: ed25519.rb_plain(r_d, table_d),
                                   reps=2, warm=1)
+            k8_nonces = r_d  # phase 19 splits these over two devices
     sign_items = [(ed_seeds[i % len(ed_seeds)], rng.bytes(32)) for i in range(1024)]
     sigs = ed25519.sign_batch(sign_items, bucket=1024)
     for i in range(0, 1024, 4):
@@ -2955,7 +3201,32 @@ def main() -> int:
         print(f"recovery_soak replica {i} fault census {census} (= the replay of the seed)")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 19")
-    # -- phase 19 ----------------------------------------------------------------
+    # -- phase 19: the batch split and the engine pool (parallel/) ----------------
+    # Phases 3, 4, 6 and 7's rows at the deployment bucket (1,024 for
+    # Ed25519), adversarial and padding lanes included.
+    split_rows = {
+        "K2": torch.from_numpy(k2_runs[512][0]).to(dev),
+        "K3": k3_nonces,
+        "K6": sha256.as_i32(k6_runs[512][0]).to(dev),
+        "K7": torch.from_numpy(k7_runs[1024][0]).to(dev),
+        "K8": k8_nonces,
+    }
+    h_rows, _expect, _forged_idx = hmac_rows(np.random.default_rng(19), 64)
+    h_bytes = [row.astype(">u4").tobytes() for row in h_rows]
+    work = (
+        verify_items(hc, rng, keys, 64),
+        [(b[:32], b[32:64], b[64:]) for b in h_bytes],
+        ed25519_items(hc, rng, ed_seeds, 64),
+        [(keys[i % len(keys)][0], rng.bytes(32)) for i in range(32)],
+        [(ed_seeds[i % len(ed_seeds)], rng.bytes(32)) for i in range(32)],
+    )
+    verdicts = run_pool_phase(torch, bench, name_power, split_rows, work,
+                              reset_counts, read_counts, path_launches)
+    check(torch.equal(torch.from_numpy(k2_runs[512][1]), verdicts["K2"]),
+          "K2 split: verdicts differ from phase 3's")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 20")
+    # -- phase 20 ----------------------------------------------------------------
     meta = {
         "K1": ("field_op (csrc/field.cuh, p256_field.cuh and ed25519_field.cuh libraries)",
                "minbft_tpu_torch/csrc/field.cuh", "minbft_tpu/ops/limbs.py:335"),

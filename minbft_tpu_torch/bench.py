@@ -71,8 +71,16 @@ reference's seven ``chaos_recovery_*`` keys,
 ``chaos_recovery_drain_margin_ms``; it joins the default run on the
 card only, and a failed soak fails the section.
 
-Left out (ROADMAP.md queue 1, with the module they wait for):
-``bench_groups_chips`` and ``use_mesh`` (the multi-GPU pool).  Dropped
+The engine pool (since ``parallel/pool.py`` and ``parallel/mesh.py`` were
+ported): ``groups_chips`` (``bench_groups_chips``: the (G, C) grid of G
+groups on a C-chip :class:`~minbft_tpu_torch.parallel.EnginePool` per
+replica through ``loadgen``, the reference's ``groups{G}x{C}_*`` keys,
+``groups_chips_*`` grid meta and ``MINBFT_BENCH_GRID_*`` knobs; C clamps
+to the visible CUDA devices, so the grid is C = 1 on one card; a failed
+point fails the section; it joins the default run on the card only,
+``MINBFT_BENCH_SKIP_GRID`` skips it there) and ``MINBFT_BENCH_MESH``
+(cfg5's engine split over every visible card, ``use_mesh``; off with one
+visible device, as in the reference).  Dropped
 as JAX- or TPU-only: the lowering modes and ``*_mode`` keys, the compile
 cache keys, ``tpu_unavailable``, the ``last_tpu`` carry-forward, the TPU
 ceiling and the ``vs_baseline`` ratio.
@@ -119,7 +127,8 @@ SIGN_QUEUE_BUCKET = 2048
 CFG4_BUCKET = 128
 
 SECTIONS = (
-    "kernels", "e2e", "ingest", "readonly", "groups", "load", "recovery", "nodedup",
+    "kernels", "e2e", "ingest", "readonly", "groups", "load", "groups_chips", "recovery",
+    "nodedup",
     "nodedupref", "cfg1", "cfg2", "cfg4", "mac", "cfg5", "iso", "mp", "mptcp",
 )
 # The in-process configurations past e2e, and the multi-process runs.
@@ -527,6 +536,7 @@ async def _bench_cluster(
     batchsize_prepare: int = 256,
     trace: bool = False,
     device=None,
+    use_mesh: bool = False,
 ) -> dict:
     """Committed-request throughput through an in-process cluster of the
     port: n replicas (replica core, SimpleLedger) and ``n_clients``
@@ -535,7 +545,9 @@ async def _bench_cluster(
     by every replica and client (``isolated_engines``: one per replica,
     the clients on another); one bucket, ``max_batch``.  ``scheme`` is
     the CLIENT/REPLICA scheme (``ecdsa-p256``, ``ed25519`` or ``mac``),
-    ``usig_kind`` the USIG's (``ecdsa`` or ``hmac``)."""
+    ``usig_kind`` the USIG's (``ecdsa`` or ``hmac``).  ``use_mesh`` splits
+    every engine's batches over all visible cards (``parallel/mesh.py``);
+    with one visible card, or on the CPU, it stays off."""
     from .client import new_client
     from .core import new_replica
     from .obs import CounterSampler, DeviceLedger, TimeSeries
@@ -560,16 +572,21 @@ async def _bench_cluster(
     # hits, buffered sends), so running them at spawn saves loop turns.
     if hasattr(asyncio, "eager_task_factory"):
         asyncio.get_running_loop().set_task_factory(asyncio.eager_task_factory)
+    placement = {"device": dev}
+    if use_mesh and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        from .parallel.mesh import make_mesh
+
+        placement = {"mesh": make_mesh()}
     # ``no_dedup`` turns off the engine's memo (every verification takes a
     # lane) and the core's verified-message memo, as in the reference.
     shared = BatchVerifier(max_batch=max_batch, buckets=(max_batch,),
-                           dedup=not no_dedup, device=dev)
+                           dedup=not no_dedup, **placement)
     if isolated_engines:
         # One engine per replica, as separate hosts would have: nothing is
         # deduplicated across replicas.  The clients keep ``shared``.
         engines = [
             BatchVerifier(max_batch=max_batch, buckets=(max_batch,),
-                          dedup=not no_dedup, device=dev)
+                          dedup=not no_dedup, **placement)
             for _ in range(n)
         ]
     else:
@@ -1703,6 +1720,92 @@ def bench_load(device=None) -> dict:
     return out
 
 
+def bench_groups_chips(device=None) -> dict:
+    """(G, chips) grid over the multi-device engine pool: G consensus
+    groups placed round-robin on a C-chip
+    :class:`~minbft_tpu_torch.parallel.EnginePool` per replica, every grid
+    point driven by the open-loop harness (``run_local_load(chips=C)``):
+    a burst probe finds the point's peak, then a SAT (1x) and an OVER
+    (2x) run emit the ``groups{G}x{C}_load_{sat,over}_*`` keys.  The SAT
+    run carries the pool attribution: ``groups{G}x{C}_verify_mean_batch``
+    (pool-wide fill of the K6 queues), per-chip
+    ``groups{G}x{C}_chip{c}_util_*`` and the pool-aggregate
+    ``groups{G}x{C}_util_*`` block, with ``_chips`` (the width built)
+    and ``_placement``.  The reference's keys and knobs:
+    ``MINBFT_BENCH_GRID_GS`` (2,4,8), ``MINBFT_BENCH_GRID_CHIPS``
+    (1,2,4,8), ``MINBFT_BENCH_GRID_REQUESTS`` (600 a run),
+    ``MINBFT_BENCH_GRID_CLIENTS`` (400), ``MINBFT_LOAD_SEED`` and
+    ``MINBFT_LOAD_PROBE_RATE``.
+
+    The chips axis clamps to the visible CUDA devices (one CPU device
+    with ``device="cpu"``): on a one-card machine the grid is C = 1.
+    Unlike the reference, which logs a failed point and goes on, a failed
+    point, or a fired census that is not the seed's replay, fails the
+    section."""
+    from .loadgen import LoadSpec
+    from .loadgen.runner import run_local_load
+
+    dev = backend.resolve_device(device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    gs = [int(x) for x in os.environ.get("MINBFT_BENCH_GRID_GS", "2,4,8").split(",")]
+    want = [int(x) for x in os.environ.get("MINBFT_BENCH_GRID_CHIPS", "1,2,4,8").split(",")]
+    cs = sorted({max(min(c, n_dev), 1) for c in want})
+    out: dict = {
+        "groups_chips_grid_Gs": gs,
+        "groups_chips_grid_chips": cs,
+        "groups_chips_requested_chips": sorted(set(want)),
+        "groups_chips_devices_visible": n_dev,
+    }
+    seed = int(os.environ.get("MINBFT_LOAD_SEED", "0x10AD"), 0)
+    n_req = _env_int("MINBFT_BENCH_GRID_REQUESTS", 600)
+    n_clients = _env_int("MINBFT_BENCH_GRID_CLIENTS", 400)
+    probe_rate = float(os.environ.get("MINBFT_LOAD_PROBE_RATE", "3000"))
+
+    def run_point(p, G, C, i, rate, util):
+        spec = LoadSpec(
+            # Distinct deterministic seed per (G, C, stage).
+            seed=seed + 1000 * G + 100 * C + i,
+            rate=max(rate, 1.0),
+            duration_s=max(n_req / max(rate, 1.0), 1.0),
+            n_clients=n_clients,
+            n_groups=G,
+            read_fraction=0.1 if util else 0.0,
+        )
+        rep = asyncio.run(run_local_load(
+            spec, pool_slots=2 if not util and i == 0 else 4, drain_s=60.0,
+            chips=C, pool_util_prefix=p if util else None, device=str(dev),
+        ))
+        if not rep["census_ok"]:
+            raise BenchError(f"{p} run {i}: fired census {rep['census']} is not the "
+                             f"replay of seed {spec.seed:#x}")
+        return rep
+
+    for G in gs:
+        for C in cs:
+            p = f"groups{G}x{C}"
+            probe = run_point(p, G, C, 0, probe_rate, util=False)
+            peak = probe["sustained_per_sec"]
+            out[f"{p}_load_burst_peak_per_sec"] = peak
+            for i, (tag, mult) in enumerate((("sat", 1.0), ("over", 2.0)), start=1):
+                rep = run_point(p, G, C, i, mult * max(peak, 1.0), util=tag == "sat")
+                lp = f"{p}_load_{tag}"
+                out[f"{lp}_offered_per_sec"] = round(mult * max(peak, 1.0), 1)
+                out[f"{lp}_goodput_per_sec"] = rep["sustained_per_sec"]
+                out[f"{lp}_p50_ms"] = rep["p50_ms"]
+                out[f"{lp}_p99_ms"] = rep["p99_ms"]
+                out[f"{lp}_finality_p99_ms"] = rep["finality_p99_ms"]
+                out[f"{lp}_slo_good_fraction"] = rep["slo_good_fraction"]
+                out[f"{lp}_census_ok"] = rep["census_ok"]
+                out[f"{lp}_shed"] = rep["cluster"]["admission_shed"]
+                out[f"{lp}_busy_sent"] = rep["cluster"]["admission_busy_sent"]
+                if tag == "sat":
+                    out[f"{p}_chips"] = rep["cluster"]["chips"]
+                    out.update(rep.get("pool_util", {}))
+                    if "pool_placement" in rep:
+                        out[f"{p}_placement"] = rep["pool_placement"]
+    return out
+
+
 # The soak's shape, the reference's (its ``bench_recovery`` and its slow
 # ``test_pinned_seed_recovery_soak``): n = 4, 6 clients x depth 4,
 # checkpoint period 4, 2,048-byte chunks, a 0.5 s outage; shared with
@@ -1827,8 +1930,9 @@ def main(argv=None) -> int:
             want.add("readonly")
         if all_configs and not skip("NODEDUP"):
             want |= {"nodedup", "nodedupref"}
-        # The multi-process runs, the groups sweep, the load curve and the
-        # recovery soak join the default run on the card only: on the CPU
+        # The multi-process runs, the groups sweep, the load curve, the
+        # engine-pool grid and the recovery soak join the default run on
+        # the card only: on the CPU
         # they would run the plain versions for minutes (seconds per K2
         # dispatch); named, they run there too.
         if not on_cpu and not skip("MP"):
@@ -1837,6 +1941,8 @@ def main(argv=None) -> int:
             want.add("groups")
         if not on_cpu and not skip("LOAD"):
             want.add("load")
+        if not on_cpu and not skip("GRID"):
+            want.add("groups_chips")
         if not on_cpu and not skip("RECOVERY"):
             want.add("recovery")
         if all_configs and not skip("CONFIGS"):
@@ -1901,6 +2007,8 @@ def main(argv=None) -> int:
     section("groups", lambda: bench_groups(
         _env_int("MINBFT_BENCH_GROUPS_REQUESTS", 8 if on_cpu else 400), device=dev))
     section("load", lambda: bench_load(device=dev))
+    # The (G, C) engine-pool grid (C clamps to the visible cards).
+    section("groups_chips", lambda: bench_groups_chips(device=dev))
     # The crash-recovery soak: n = 4 processes, one kill -9 mid-load.
     section("recovery", lambda: bench_recovery(device=dev))
     cluster("nodedup", 7, 3, _env_int("MINBFT_BENCH_NODEDUP_REQUESTS", 2000),
@@ -1922,7 +2030,9 @@ def main(argv=None) -> int:
             n_clients=n_clients, usig_kind="hmac", scheme="mac", prefix="mac")
     cluster("cfg5", 31, 15, _env_int("MINBFT_BENCH_CFG5_REQUESTS", 1000),
             n_clients=min(n_clients, 50), usig_kind="hmac", scheme="ed25519",
-            max_batch=_env_int("MINBFT_BENCH_CFG5_BATCH", 1024), prefix="cfg5")
+            max_batch=_env_int("MINBFT_BENCH_CFG5_BATCH", 1024), prefix="cfg5",
+            use_mesh=os.environ.get("MINBFT_BENCH_MESH", "0").lower()
+            not in ("", "0", "false", "no"))
     cluster("iso", 7, 3, _env_int("MINBFT_BENCH_ISO_REQUESTS", 4000),
             n_clients=min(n_clients, 50), usig_kind="ecdsa", prefix="iso",
             isolated_engines=True)

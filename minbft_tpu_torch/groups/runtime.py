@@ -754,7 +754,9 @@ class _GroupedClientStreamHandler(api.MessageStreamHandler):
 
 class GroupRuntime(api.Replica):
     """G independent MinBFT group cores in one replica process, over one
-    connector and one engine.
+    connector and one engine, or with ``engine_pool``
+    (:class:`~minbft_tpu_torch.parallel.EnginePool`) one engine per home
+    chip, each group's authenticator bound to its chip's facade.
 
     ``authenticators`` must be one PER-GROUP base instance each (own
     USIG counter state — shared counters would break per-group UI
@@ -798,16 +800,17 @@ class GroupRuntime(api.Replica):
             f"minbft.replica{replica_id}.groups"
         )
         self._mux = SharedChannelMux(connector, log=self.log)
-        # The multi-device engine pool (parallel/pool.py) is not ported:
-        # every group core here shares the one engine its authenticators
-        # were built with.
-        if engine_pool is not None:
-            from ..api import NotPortedError
-
-            raise NotPortedError("GroupRuntime(engine_pool=...) (parallel/pool.py)", "7")
-        self.engine_pool = None
+        # Multi-device engine pool (parallel/pool.py): when provided, each
+        # group's BASE authenticator is late-bound to its home-chip engine
+        # facade (group -> exactly one chip), so all groups homed on a
+        # chip coalesce into THAT chip's queues.  Binding happens before
+        # the GroupAuthenticator wrap (the wrapper delegates, it does not
+        # copy) and never overrides an engine the caller already injected.
+        self.engine_pool = engine_pool
         self.cores: List[_Replica] = []
         for g, (auth, consumer) in enumerate(zip(authenticators, consumers)):
+            if engine_pool is not None and hasattr(auth, "bind_engine"):
+                auth.bind_engine(engine_pool.engine_for(g))
             if domain_separation:
                 auth = GroupAuthenticator(auth, g)
             conn_g = self._mux.group_connector(g)

@@ -16,7 +16,9 @@ certificate on the host.  Here the n replicas share one
 (``cuda:0`` unless the caller passes another, or ``None`` for the
 reference's host crypto), so every request MAC and HMAC USIG certificate
 a replica checks is one lane of K6 and, under ``scheme="ecdsa-p256"``,
-every request signature one lane of K2 (REPLY signatures: K3).  The
+every request signature one lane of K2 (REPLY signatures: K3).  With
+``chips`` each replica owns an engine pool instead (one engine per home
+chip, the groups placed over the chips).  The
 generator's identities sign their requests on the host before the clock
 starts, as in the reference.
 """
@@ -89,6 +91,7 @@ async def run_local_load(
     expect_goodput: float = 0.0,
     scheme: str = "mac",
     chips: Optional[int] = None,
+    pool_util_prefix: Optional[str] = None,
     slo_target_ms: Optional[float] = None,
     slo_objective: Optional[float] = None,
     device: Optional[str] = "cuda:0",
@@ -110,9 +113,23 @@ async def run_local_load(
     for host crypto (only when the caller asks for it).  CUDA asked for
     and absent raises ``RuntimeError``.  The report's ``engine`` holds
     the engine's device, per-queue items, batches and dispatch timeouts,
-    and the kernel launches of the process.  ``chips`` (the reference's
-    multi-device engine pool) is not ported: any value but ``None``
-    raises :class:`~minbft_tpu_torch.api.NotPortedError`.
+    and the kernel launches of the process.
+
+    ``chips`` (grouped runs only) gives each replica a multi-device
+    :class:`~minbft_tpu_torch.parallel.EnginePool` instead of the shared
+    engine: one engine per home chip over the visible CUDA devices (from
+    ``device`` on), or over the one CPU device with ``device="cpu"``,
+    groups placed round-robin, each group's request MACs and HMAC USIG
+    certificates checked in its home chip's K6 queue.  The pool clamps to
+    the devices it has; ``report["cluster"]["chips"]`` is the width
+    built, and ``report["engine"]`` replica 0's pool.  ``chips`` with
+    ``device=None`` or with one group raises ``ValueError``: the run never
+    goes on without the pool.  ``pool_util_prefix`` also snapshots replica
+    0's pool through :class:`~minbft_tpu_torch.obs.ledger.PoolLedger` over
+    the measured run and returns the ``{prefix}_chip{c}_util_*`` and
+    pool-aggregate ``{prefix}_util_*`` keys (plus
+    ``{prefix}_verify_mean_batch``) under ``report["pool_util"]``, with
+    the placement under ``report["pool_placement"]``.
 
     ``slo_target_ms`` stamps ``slo_ok`` (good_fraction >= objective)
     into the report — the optional third leg of the ``peer load`` rc
@@ -135,10 +152,11 @@ async def run_local_load(
     from ..sample.requestconsumer import SimpleLedger
 
     spec.validate()
-    if chips is not None:
-        from ..api import NotPortedError
-
-        raise NotPortedError(f"run_local_load(chips={chips}) (parallel/pool.py)", "7")
+    if chips is not None and (device is None or spec.n_groups < 2):
+        raise ValueError(
+            f"chips={chips} needs a grouped spec (n_groups > 1) and an engine "
+            "device (device='cpu' or a CUDA device), not host crypto"
+        )
     if hasattr(asyncio, "eager_task_factory"):
         asyncio.get_running_loop().set_task_factory(asyncio.eager_task_factory)
     if scheme not in ("mac", "ecdsa-p256"):
@@ -163,7 +181,7 @@ async def run_local_load(
         groups=spec.n_groups,
     )
     engine = None
-    if device is not None:
+    if device is not None and chips is None:
         from ..parallel import BatchVerifier
 
         # One engine for the n replicas, one bucket (the bench's
@@ -180,16 +198,25 @@ async def run_local_load(
     ledgers: list = []
     replicas = []
     servers = []
+    pools = []
     for i in range(n):
         if grouped:
             group_ledgers = [SimpleLedger() for _ in range(spec.n_groups)]
             ledgers.append(group_ledgers)
+            engine_pool = None
+            if chips is not None:
+                from ..parallel import EnginePool
+
+                # 512 lanes, one bucket: the shared engine's shape.
+                engine_pool = EnginePool.over(device, chips, 512)
+                pools.append(engine_pool)
             r = new_group_runtime(
                 i,
                 cfg,
                 [_replica_auth(store, i, engine) for _ in range(spec.n_groups)],
                 InProcessPeerConnector(stubs),
                 group_ledgers,
+                engine_pool=engine_pool,
             )
         else:
             ledger = SimpleLedger()
@@ -220,6 +247,15 @@ async def run_local_load(
         # schedule and starve the firing loop (everything shares one
         # event loop here).
         await _warmup(spec, n, f, store, addrs)
+
+        # Pool attribution window opens AFTER warmup (the ledger deltas
+        # against its construction-time baseline, so warmup batches
+        # never pollute the measured busy/fill).
+        pool_ledger = None
+        if pools and pool_util_prefix:
+            from ..obs.ledger import PoolLedger
+
+            pool_ledger = PoolLedger(pools[0])
 
         client_ids = list(range(spec.n_clients))
         schedule = None
@@ -264,6 +300,21 @@ async def run_local_load(
         # Breach forensics BEFORE teardown: the bundle reads the live
         # replicas' flight recorders and SLO ledgers.
         _slo_forensics(report, gen, replicas, grouped, f, slo_objective)
+        if pool_ledger is not None:
+            # Snapshot before teardown: wall time must cover exactly the
+            # measured run, not the server drain below.  MAC request
+            # auth rides each home chip's K6 queue.
+            queue = "hmac_sha256" if scheme == "mac" else "ecdsa_p256"
+            util = pool_ledger.util_keys(pool_util_prefix, queue)
+            win = pool_ledger.window(queue)
+            if win is not None:
+                util[f"{pool_util_prefix}_verify_mean_batch"] = round(
+                    win.mean_batch, 2
+                )
+            report["pool_util"] = util
+            report["pool_placement"] = {
+                str(g): c for g, c in sorted(pools[0].placement().items())
+            }
     finally:
         for srv in servers:
             try:
@@ -299,8 +350,8 @@ async def run_local_load(
     report["cluster"] = {
         "n": n,
         "f": f,
-        # One engine (no pool in the port yet).
-        "chips": 1,
+        # Actual pool width (post-clamp): 1 when no pool was threaded.
+        "chips": pools[0].chips if pools else 1,
         "committed_entries_all_replicas": committed,
         "admission_shed": shed,
         "admission_busy_sent": busy_sent,
@@ -311,10 +362,10 @@ async def run_local_load(
         # under retransmission, so this is a rate, not a fraction of 1).
         "shed_per_arrival": round(shed / arrivals, 3),
     }
-    if engine is not None:
+    if engine is not None or pools:
         from ..sample.peer.cli import engine_report
 
-        report["engine"] = engine_report(engine)
+        report["engine"] = engine_report(engine if engine is not None else pools[0])
     if expect_goodput > 0:
         report["expect_goodput_per_sec"] = expect_goodput
         report["goodput_ok"] = report["goodput_per_sec"] >= expect_goodput

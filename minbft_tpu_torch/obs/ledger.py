@@ -46,8 +46,8 @@ mesh width) and reports per-device rates alongside the pooled ones, so
 the multichip engine pool lands into an accounting that already has the
 axis.
 
-Port of :mod:`minbft_tpu.obs.ledger` (a copy).  ``PoolLedger`` waits for
-the port's multi-GPU engine pool.
+Port of :mod:`minbft_tpu.obs.ledger` (a copy), ``PoolLedger`` included
+(over :class:`~minbft_tpu_torch.parallel.pool.EnginePool`).
 """
 
 from __future__ import annotations
@@ -274,3 +274,177 @@ class DeviceLedger:
             f"{prefix}_util_lanes_memo": win.memo_lanes,
             f"{prefix}_util_lanes_fallback": win.fallback_lanes,
         }
+
+
+class PoolLedger:
+    """Per-chip utilization ledgers over an
+    :class:`~minbft_tpu_torch.parallel.pool.EnginePool`, plus the pool
+    aggregate.
+
+    One :class:`DeviceLedger` per home-chip engine (and one for the
+    striped engine when the pool has one), all sharing a single window
+    start.  Three read-outs:
+
+    - :meth:`chip_scores` — the per-chip ``busy × fill`` load scores the
+      placement rebalance hook consumes;
+    - :meth:`window` — ONE merged :class:`QueueWindow` for a queue
+      across the whole pool, with mean-across-chips busy semantics (a
+      striped dispatch occupies every chip for its span, so its busy
+      seconds weigh ``chips``×);
+    - :meth:`util_keys` — the bench-artifact block: per-chip
+      ``{prefix}_chip{c}_util_busy``/``_util_fill`` + lane census, and
+      the POOL-AGGREGATE block in the exact :meth:`DeviceLedger.util_keys`
+      schema, where the aggregate ceiling is the per-chip ceiling ×
+      pool width and ``effective_per_sec`` is the pool total.  The
+      headroom identity holds for the aggregate by the same algebra
+      (``ceiling×C × Σbusy/(C·wall) × lanes/(ceiling×Σbusy) ×
+      useful/lanes ≡ useful/wall``), and a 1-chip pool's aggregate
+      block is EXACTLY a bare DeviceLedger's — the differential test
+      pins it.
+    """
+
+    def __init__(self, pool, now: Optional[float] = None):
+        t = time.monotonic() if now is None else now
+        self.pool = pool
+        self.chips = len(pool.engines)
+        self.chip_ledgers = [DeviceLedger(e, now=t) for e in pool.engines]
+        striped = getattr(pool, "striped_engine", None)
+        self.striped_ledger = (
+            DeviceLedger(striped, now=t) if striped is not None else None
+        )
+        self._ceilings: Dict[str, tuple] = {}
+
+    def set_ceiling(self, queue: str, lanes_per_sec: float,
+                    source: str) -> None:
+        """Per-CHIP calibrated lane rate (the aggregate scales it by the
+        pool width); fans out to every chip ledger."""
+        if lanes_per_sec <= 0:
+            raise ValueError("ceiling must be positive")
+        self._ceilings[queue] = (float(lanes_per_sec), source)
+        for led in self.chip_ledgers:
+            led.set_ceiling(queue, lanes_per_sec, source)
+        if self.striped_ledger is not None:
+            self.striped_ledger.set_ceiling(queue, lanes_per_sec, source)
+
+    def _queue_win(self, led: "DeviceLedger", queue: str, now: float):
+        wins = led.snapshot(now=now)
+        return wins.get(f"verify:{queue}") or wins.get(f"sign:{queue}")
+
+    def window(self, queue: str,
+               now: Optional[float] = None) -> Optional[QueueWindow]:
+        """The pool-merged window for ``queue``: lanes/batches summed,
+        ``busy_s`` the mean across the pool's chips (striped spans weigh
+        ``chips``×), so ``busy_s/wall_s`` reads as pool utilization and
+        ``mean_batch`` as the pool-wide fill."""
+        t = time.monotonic() if now is None else now
+        parts = []  # (window, busy_weight)
+        for led in self.chip_ledgers:
+            win = self._queue_win(led, queue, t)
+            if win is not None:
+                parts.append((win, 1))
+        if self.striped_ledger is not None:
+            win = self._queue_win(self.striped_ledger, queue, t)
+            if win is not None:
+                parts.append((win, self.chips))
+        if not parts:
+            return None
+        wall = max(w.wall_s for w, _ in parts)
+        busy_chip_s = sum(w.busy_s * wt for w, wt in parts)
+        return QueueWindow(
+            name=queue,
+            side=parts[0][0].side,
+            wall_s=wall,
+            busy_s=min(busy_chip_s / self.chips, wall),
+            device_time_s=sum(w.device_time_s * wt for w, wt in parts),
+            useful_lanes=sum(w.useful_lanes for w, _ in parts),
+            padded_lanes=sum(w.padded_lanes for w, _ in parts),
+            memo_lanes=sum(w.memo_lanes for w, _ in parts),
+            fallback_lanes=sum(w.fallback_lanes for w, _ in parts),
+            batches=sum(w.batches for w, _ in parts),
+        )
+
+    def chip_scores(self, queue: Optional[str] = None,
+                    now: Optional[float] = None) -> list:
+        """Per-chip ``busy × fill`` since
+        construction — the rebalance feed.  An untouched chip scores
+        0.0.  ``queue=None`` aggregates each chip's active queues
+        (busy summed and clamped, fill lane-weighted)."""
+        t = time.monotonic() if now is None else now
+        scores = []
+        for led in self.chip_ledgers:
+            wins = led.snapshot(now=t)
+            if queue is not None:
+                wins = {k: w for k, w in wins.items() if w.name == queue}
+            if not wins:
+                scores.append(0.0)
+                continue
+            wall = max(w.wall_s for w in wins.values())
+            busy = min(sum(w.busy_s for w in wins.values())
+                       / max(wall, 1e-9), 1.0)
+            lanes = sum(w.dispatched_lanes for w in wins.values())
+            if lanes > 0:
+                fill = sum(
+                    led.decompose(w).fill_efficiency * w.dispatched_lanes
+                    for w in wins.values()
+                ) / lanes
+            else:
+                fill = 1.0
+            scores.append(round(busy * fill, 4))
+        return scores
+
+    def util_keys(self, prefix: str, queue: str,
+                  now: Optional[float] = None) -> Dict[str, object]:
+        """Per-chip attribution + the pool-aggregate ``*_util_*`` block
+        (DeviceLedger schema, so the same benchgate suffix rules gate
+        it)."""
+        t = time.monotonic() if now is None else now
+        out: Dict[str, object] = {}
+        for c, led in enumerate(self.chip_ledgers):
+            win = self._queue_win(led, queue, t)
+            if win is None:
+                continue
+            dec = led.decompose(win)
+            out[f"{prefix}_chip{c}_util_busy"] = round(dec.busy_fraction, 4)
+            out[f"{prefix}_chip{c}_util_fill"] = round(dec.fill_efficiency, 4)
+            out[f"{prefix}_chip{c}_util_lanes_useful"] = win.useful_lanes
+            out[f"{prefix}_chip{c}_util_lanes_padding"] = win.padded_lanes
+            out[f"{prefix}_chip{c}_util_lanes_memo"] = win.memo_lanes
+            out[f"{prefix}_chip{c}_util_lanes_fallback"] = win.fallback_lanes
+        if self.striped_ledger is not None:
+            win = self._queue_win(self.striped_ledger, queue, t)
+            if win is not None:
+                out[f"{prefix}_stripe_util_lanes_useful"] = win.useful_lanes
+                out[f"{prefix}_stripe_util_batches"] = win.batches
+        merged = self.window(queue, now=t)
+        if merged is None:
+            return {}
+        stored = self._ceilings.get(queue)
+        if stored is not None:
+            rate, source = stored
+            if self.chips > 1:
+                source = f"{source} x{self.chips}"
+            dec = self.chip_ledgers[0].decompose(
+                merged, ceiling=rate * self.chips, source=source
+            )
+        else:
+            dec = self.chip_ledgers[0].decompose(merged)
+        dec = dataclasses.replace(dec, n_devices=self.chips)
+        out.update({
+            f"{prefix}_util_busy": round(dec.busy_fraction, 4),
+            f"{prefix}_util_fill": round(dec.fill_efficiency, 4),
+            f"{prefix}_util_useful": round(dec.useful_fraction, 4),
+            f"{prefix}_util_effective_per_sec": round(
+                dec.effective_per_sec, 1
+            ),
+            f"{prefix}_util_per_device_per_sec": round(
+                dec.per_device_effective_per_sec, 1
+            ),
+            f"{prefix}_util_ceiling_per_sec": round(dec.ceiling_per_sec, 1),
+            f"{prefix}_util_ceiling_source": dec.ceiling_source,
+            f"{prefix}_util_idle_s": round(merged.idle_s, 3),
+            f"{prefix}_util_lanes_useful": merged.useful_lanes,
+            f"{prefix}_util_lanes_padding": merged.padded_lanes,
+            f"{prefix}_util_lanes_memo": merged.memo_lanes,
+            f"{prefix}_util_lanes_fallback": merged.fallback_lanes,
+        })
+        return out

@@ -12,10 +12,6 @@ slightly stale but never torn value — the standard Prometheus contract
 loop's locks, so a slow scraper can never stall the protocol; the one
 lock a scrape takes is the engine's stats lock, which the dispatcher
 threads hold only for a few counter updates.
-
-Left out here: ``collect_engine_pool`` (the multi-GPU engine pool,
-``parallel/pool.py``) comes with that module; until then
-:func:`collect_group_runtime` has no ``engine_pool`` branch.
 """
 
 from __future__ import annotations
@@ -552,16 +548,73 @@ def merge_family_lists(lists: Iterable[List[Family]]) -> List[Family]:
     ]
 
 
+# The two help texts that differ from the reference's: the busy window
+# is named by what it is, and the port has no device write-off (a hung
+# dispatch fails its batch), so its DOWN is not "every queue written off".
+CHIP_BUSY_HELP = (
+    "per-chip busy fraction since the last scrape (utilization-ledger "
+    "window over the chip's engine)"
+)
+CHIP_UP_HELP = (
+    "0 when every queue on the chip timed out on its last dispatch (a "
+    "timeout since its last success; the chip is effectively DOWN)"
+)
+
+
+def collect_engine_pool(pool, base: Optional[Dict[str, str]] = None
+                        ) -> List[Family]:
+    """Families for a :class:`minbft_tpu_torch.parallel.EnginePool`: pool
+    width, per-chip utilization (busy fraction and fill efficiency over
+    the window since the LAST scrape — the call rolls the pool's
+    utilization windows, same reset-on-read contract as the depth-peak
+    gauges), per-chip queue depth and liveness, and each group's home
+    chip.  ``peer top`` renders these as per-chip sub-rows under the
+    (replica, group) identity; a chip whose every queue timed out on its
+    last dispatch reads ``minbft_engine_pool_chip_up`` 0 (rendered
+    DOWN)."""
+    base = dict(base or {})
+    rows = pool.chip_utilization()
+    busy, fill, depth, up = [], [], [], []
+    for row in rows:
+        lb = {**base, "chip": str(row["chip"])}
+        busy.append((lb, row["busy"]))
+        fill.append((lb, row["fill"]))
+        depth.append((lb, row["depth"]))
+        up.append((lb, 1 if pool.chip_up(row["chip"]) else 0))
+    home = [
+        ({**base, "group": str(g)}, c)
+        for g, c in sorted(pool.placement().items())
+    ]
+    return [
+        ("minbft_engine_pool_chips", "gauge",
+         "home chips in the engine pool (requested clamps to visible "
+         "devices)", [(base, pool.chips)]),
+        ("minbft_engine_pool_chip_busy", "gauge",
+         CHIP_BUSY_HELP, busy),
+        ("minbft_engine_pool_chip_fill", "gauge",
+         "per-chip fill efficiency since the last scrape (1.0 under a "
+         "self ceiling)", fill),
+        ("minbft_engine_pool_chip_depth", "gauge",
+         "items pending across the chip engine's verify+sign queues",
+         depth),
+        ("minbft_engine_pool_chip_up", "gauge",
+         CHIP_UP_HELP, up),
+        ("minbft_engine_pool_home_chip", "gauge",
+         "each consensus group's home chip (placement map)", home),
+    ]
+
+
 def collect_group_runtime(runtime, engine=None, replica_id=None,
-                          timeseries=None, slo_spool=None) -> List[Family]:
+                          timeseries=None, engine_pool=None,
+                          slo_spool=None) -> List[Family]:
     """Families for a :class:`minbft_tpu_torch.groups.GroupRuntime`: one
     ``collect_replica`` per group core (every series carries its
     ``group`` label), the shared engine's families once (its queues
     really are shared — splitting them per group would double-count).
     The time-series rings and the stale-group health gauge are
-    process-level and likewise emitted once.  The reference's
-    ``engine_pool`` branch (the ``minbft_engine_pool_*`` per-chip
-    families) waits for the port's engine pool."""
+    process-level and likewise emitted once.  ``engine_pool`` (explicit,
+    or the runtime's own ``engine_pool`` attribute) adds the
+    ``minbft_engine_pool_*`` per-chip families."""
     n_groups = len(runtime.cores)
     lists = [
         collect_replica(
@@ -604,6 +657,11 @@ def collect_group_runtime(runtime, engine=None, replica_id=None,
         base = {} if replica_id is None else {"replica": str(replica_id)}
         lists.append(collect_recovery(recovery_managers, base=base))
     fams = merge_family_lists(lists)
+    if engine_pool is None:
+        engine_pool = getattr(runtime, "engine_pool", None)
+    if engine_pool is not None:
+        base = {} if replica_id is None else {"replica": str(replica_id)}
+        fams.extend(collect_engine_pool(engine_pool, base))
     stale_fn = getattr(runtime, "stale_groups", None)
     if stale_fn is not None:
         base = {} if replica_id is None else {"replica": str(replica_id)}

@@ -100,10 +100,10 @@ def _u64(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & _M
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
-    # x < 2^32, so x << (32 - n) may reach bit 63 and wrap; the mask
-    # keeps exactly the low 32 bits either way.
-    return ((x >> n) | (x << (32 - n))) & _M
+def _twice(x: torch.Tensor) -> torch.Tensor:
+    """x < 2^32 written twice, in bits 0-31 and 32-63 (bit 63 may wrap):
+    ``(_twice(x) >> n) & _M`` is x rotated right by n < 32."""
+    return x | (x << 32)
 
 
 def compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
@@ -111,7 +111,9 @@ def compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
     [B, 16] u32 words (big-endian, any integer dtype) -> [B, 8] int64.
 
     The reference's ``_compress_loop``: a rolling 16-word schedule
-    window, 64 rounds."""
+    window, 64 rounds.  Each rotation reads the word written twice
+    (:func:`_twice`), and the three rotations of a sigma share one mask:
+    on the CPU the time is the number of tensor operations, not lanes."""
     st = _u64(state)
     w = list(_u64(block).unbind(1))
     a, b, c, d, e, f, g, h = st.unbind(1)
@@ -120,15 +122,18 @@ def compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
             wt = w[t]
         else:
             w15, w2 = w[(t - 15) & 15], w[(t - 2) & 15]
-            s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
-            s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+            x, y = _twice(w15), _twice(w2)
+            s0 = (((x >> 7) ^ (x >> 18)) & _M) ^ (w15 >> 3)
+            s1 = (((y >> 17) ^ (y >> 19)) & _M) ^ (w2 >> 10)
             wt = (w[t & 15] + s0 + w[(t - 7) & 15] + s1) & _M
             w[t & 15] = wt
-        big_s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ (~e & g)
+        x = _twice(e)
+        big_s1 = ((x >> 6) ^ (x >> 11) ^ (x >> 25)) & _M
+        ch = g ^ (e & (f ^ g))
         t1 = h + big_s1 + ch + int(_K[t]) + wt
-        big_s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
+        x = _twice(a)
+        big_s0 = ((x >> 2) ^ (x >> 13) ^ (x >> 22)) & _M
+        maj = (a & b) | (c & (a | b))
         h, g, f, e = g, f, e, (d + t1) & _M
         d, c, b, a = c, b, a, (t1 + big_s0 + maj) & _M
     return (st + torch.stack([a, b, c, d, e, f, g, h], dim=1)) & _M

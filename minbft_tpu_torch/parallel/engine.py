@@ -2,7 +2,8 @@
 
 Port of :mod:`minbft_tpu.parallel.engine` for one CUDA device (default
 ``cuda:0``; ``device="cpu"`` runs the plain PyTorch versions of the
-kernels).  The queue machinery is the reference's, unchanged:
+kernels) or a batch split over several (``mesh=``, :mod:`.mesh`).  The
+queue machinery is the reference's, unchanged:
 
 1. each protocol task awaits ``BatchVerifier.verify_*`` / ``sign_*`` and
    its item joins the scheme's pending queue,
@@ -33,7 +34,6 @@ moved the card's work to the host.
 from __future__ import annotations
 
 import asyncio
-import contextlib
 import dataclasses
 import threading
 import time
@@ -45,6 +45,7 @@ import torch
 
 from ..obs.hist import Log2Histogram
 from ..ops import backend
+from . import mesh as mesh_mod
 
 
 def _bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -200,6 +201,9 @@ class _DispatchQueue:
         self.pending: List[Tuple[object, asyncio.Future, int]] = []
         self._flush_handle: Optional[asyncio.Handle] = None
         self.inflight = 0
+        # Dispatches timed out since the last one that completed (the
+        # engine pool's chip_up reads it; loop-side updates only).
+        self._consecutive_timeouts = 0
         # High-water mark of len(pending) since the last peak snapshot:
         # the point-in-time depth gauge misses every burst between
         # samples.  Updated loop-side in _schedule_flush (every growth
@@ -335,10 +339,14 @@ class _DispatchQueue:
             return await asyncio.to_thread(host, items), True
         timeout = self.engine.dispatch_timeout
         if timeout <= 0:
-            return await asyncio.to_thread(self.dispatch, items), False
+            results = await asyncio.to_thread(self.dispatch, items)
+            self._consecutive_timeouts = 0
+            return results, False
         task = asyncio.ensure_future(asyncio.to_thread(self.dispatch, items))
         try:
-            return await asyncio.wait_for(asyncio.shield(task), timeout), False
+            results = await asyncio.wait_for(asyncio.shield(task), timeout)
+            self._consecutive_timeouts = 0
+            return results, False
         except asyncio.TimeoutError:
             # Swallow whatever the abandoned thread eventually raises (an
             # unretrieved task exception would otherwise be logged).
@@ -346,9 +354,10 @@ class _DispatchQueue:
                 lambda t: t.exception() if not t.cancelled() else None
             )
             self.stats.dispatch_timeouts += 1
+            self._consecutive_timeouts += 1
             raise TimeoutError(
                 f"{self.name} dispatch of {len(items)} items on "
-                f"{self.engine.device} hung > {timeout}s"
+                f"{self.engine.mesh} hung > {timeout}s"
             ) from None
 
 
@@ -527,8 +536,14 @@ class BatchVerifier:
     ``sign_on_device`` matters only on the CPU: there ``None``/False signs
     with the serial host signer and True with the plain k*G / r*B; a
     CUDA engine always signs with K3 and K8 (False raises
-    ``ValueError``).  ``mesh`` (multi-GPU) is not ported yet and raises
-    ``NotImplementedError``.
+    ``ValueError``).
+
+    Every dispatch runs through :func:`.mesh.sharded_verifier` over the
+    engine's ``mesh``: ``Mesh((device,))`` unless a mesh
+    (:func:`.mesh.make_mesh`) is passed, which splits every batch over its
+    devices.  The buckets round up to multiples of the mesh size, and
+    ``dispatch_timeout`` covers every chunk of a dispatch.  ``device=``
+    with a mesh of more than one device raises ``ValueError``.
     """
 
     def __init__(
@@ -543,12 +558,16 @@ class BatchVerifier:
         sign_on_device: Optional[bool] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU engines (mesh=) are not ported yet: ROADMAP.md "
-                "queue 1 item 7"
-            )
+        if mesh is not None and mesh.size > 1 and device is not None:
+            raise ValueError("pass either device= (home chip) or mesh=, not both")
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
+        # ``device`` is the mesh's first device (all are of one type); a
+        # dispatch runs on every device of the mesh.
         self.device = backend.resolve_device(device)
+        if mesh is None or mesh.size == 1:
+            mesh = mesh_mod.Mesh((self.device,))
+        self.mesh = mesh
         if self.device.type == "cuda" and sign_on_device is False:
             raise ValueError(
                 "a CUDA engine signs with the k*G kernel: sign_on_device=False "
@@ -562,8 +581,9 @@ class BatchVerifier:
             backend.EXTENSION.build_all()
             from ..ops import ed25519, p256
 
-            p256.comb_table_words(str(self.device))
-            ed25519.comb_table_words(str(self.device))
+            for d in self.mesh.devices:
+                p256.comb_table_words(str(d))
+                ed25519.comb_table_words(str(d))
         # A dispatch that exceeds this many seconds is abandoned and its
         # batch fails; see _DispatchQueue._dispatch_timed.  0 disables.
         self.dispatch_timeout = dispatch_timeout
@@ -592,6 +612,10 @@ class BatchVerifier:
             raise ValueError(
                 f"largest bucket {self.buckets[-1]} < max_batch {max_batch}"
             )
+        # Every chunk of a padded batch gets the same length.
+        self.buckets = tuple(
+            sorted({mesh_mod.round_up_to_mesh(self.mesh, b) for b in self.buckets})
+        )
         self._queues: Dict[str, _SchemeQueue] = {}
         self._sign_queues: Dict[str, _SignQueue] = {}
         self._staging = _StagingPool(
@@ -633,15 +657,6 @@ class BatchVerifier:
             (names.get(qid, f"queue{qid}"), pad, prep_ns, t_ns)
             for qid, pad, prep_ns, t_ns in ring.snapshot()
         ]
-
-    def _device_scope(self):
-        """Placement scope for one dispatch, entered on the WORKER thread
-        around the kernel call: ``torch.cuda.device`` of the engine's
-        device (the launch goes to PyTorch's current stream there), a
-        no-op on the CPU."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
 
     # -- queues -------------------------------------------------------------
 
@@ -775,11 +790,17 @@ class BatchVerifier:
     # -- dispatchers (worker thread; the device work happens here) ----------
     #
     # Shape: acquire a recycled staging tensor, prep/pack the batch into
-    # it (timed separately as host_prep_time_s), copy it to the device,
-    # launch the kernel, materialize the results with .cpu() (which waits
-    # for the stream), release the buffer.  The release MUST stay behind
-    # the materialization: the asynchronous upload reads the pinned
-    # buffer until the stream reaches it.
+    # it (timed separately as host_prep_time_s), then _launch: copy each
+    # chunk to its mesh device, launch the kernel there, materialize the
+    # results with .cpu() (which waits for the stream); release the
+    # buffer.  The release MUST stay behind the materialization: the
+    # asynchronous upload reads the pinned buffer until the stream
+    # reaches it, and _launch returns only after every chunk is read back.
+
+    def _launch(self, kernel, staging: torch.Tensor) -> torch.Tensor:
+        """``kernel`` over the staged batch, split over the engine's mesh
+        (one chunk, one launch, per mesh device); every lane on the host."""
+        return mesh_mod.sharded_verifier(kernel, self.mesh)(staging)
 
     def _note_prep(self, name: str, pad: int, prep_s: float) -> None:
         """Cross-thread stats update for a dispatcher (worker thread):
@@ -818,10 +839,8 @@ class BatchVerifier:
         try:
             p256.prepare_packed(items, b, out=staging.numpy())
             self._note_prep("ecdsa_p256", b - n, time.perf_counter() - t0)
-            with self._device_scope():
-                rows = staging.to(self.device, non_blocking=True)
-                out = p256.ecdsa_verify_kernel_packed(rows)
-                return out[:n].cpu().numpy()
+            out = self._launch(p256.ecdsa_verify_kernel_packed, staging)
+            return out[:n].numpy()
         finally:
             self._staging.release(staging)
 
@@ -845,10 +864,8 @@ class BatchVerifier:
             ).reshape(n, PACKED_COLS)
             words[n:] = 0
             self._note_prep("hmac_sha256", b - n, time.perf_counter() - t0)
-            with self._device_scope():
-                rows = staging.to(self.device, non_blocking=True)
-                out = hmac_verify_kernel_packed(rows)
-                return out[:n].cpu().numpy()
+            out = self._launch(hmac_verify_kernel_packed, staging)
+            return out[:n].numpy()
         finally:
             self._staging.release(staging)
 
@@ -862,10 +879,8 @@ class BatchVerifier:
         try:
             ed.prepare_packed(items, b, out=staging.numpy())
             self._note_prep("ed25519", b - n, time.perf_counter() - t0)
-            with self._device_scope():
-                rows = staging.to(self.device, non_blocking=True)
-                out = ed.ed25519_verify_kernel_packed(rows)
-                return out[:n].cpu().numpy()
+            out = self._launch(ed.ed25519_verify_kernel_packed, staging)
+            return out[:n].numpy()
         finally:
             self._staging.release(staging)
 
@@ -879,9 +894,7 @@ class BatchVerifier:
         try:
             _k, meta = p256.sign_prepare(items, b, out=staging.numpy())
             prep = time.perf_counter() - t0
-            with self._device_scope():
-                k = staging.to(self.device, non_blocking=True)
-                xz = p256.ecdsa_kg_kernel(k).cpu().numpy()
+            xz = self._launch(p256.ecdsa_kg_kernel, staging).numpy()
             t1 = time.perf_counter()
             sigs = p256.sign_finish(items, meta, xz)
             prep += time.perf_counter() - t1
@@ -900,9 +913,7 @@ class BatchVerifier:
         try:
             _r, meta = ed.sign_prepare(items, b, out=staging.numpy())
             prep = time.perf_counter() - t0
-            with self._device_scope():
-                r = staging.to(self.device, non_blocking=True)
-                xyz = ed.ed25519_rb_kernel(r).cpu().numpy()
+            xyz = self._launch(ed.ed25519_rb_kernel, staging).numpy()
             t1 = time.perf_counter()
             sigs = ed.sign_finish(meta, xyz)
             prep += time.perf_counter() - t1

@@ -259,6 +259,18 @@ class SampleAuthenticator(api.Authenticator):
         # generate_message_authen_tag_async.
         self._engine = engine
 
+    def bind_engine(self, engine) -> None:
+        """Late-bind a batching engine (or an engine-pool facade) onto an
+        engine-less authenticator.  The multi-group runtime uses this to
+        hand each group's authenticator its HOME-CHIP engine after
+        placement: the authenticator was constructed before the pool
+        (key material first, placement later).  A no-op when an engine
+        was already injected at construction: an explicit engine wins
+        over pool placement.  Engine use is decided per call, so the
+        binding takes effect on the next check or sign."""
+        if self._engine is None and engine is not None:
+            self._engine = engine
+
     # -- generation ---------------------------------------------------------
 
     def generate_message_authen_tag(

@@ -162,6 +162,16 @@ class MacAuthenticator(api.Authenticator):
         self._inner = inner
         self._engine = engine
 
+    def bind_engine(self, engine) -> None:
+        """Late-bind a batching engine (an engine-pool home-chip facade):
+        MAC checks then go through its HMAC-SHA256 queue, and the inner
+        USIG authenticator gets the same binding.  No-op when an engine
+        was already injected, as :meth:`SampleAuthenticator.bind_engine`."""
+        if self._engine is None and engine is not None:
+            self._engine = engine
+        if self._inner is not None and hasattr(self._inner, "bind_engine"):
+            self._inner.bind_engine(engine)
+
     # -- generation ---------------------------------------------------------
 
     def generate_message_authen_tag(

@@ -58,8 +58,13 @@ report line; its exit code is 0 only when the fired census equals the
 seed's replay (and any ``--expect-goodput`` / ``--slo-target-ms`` bar is
 met).
 
-``--chips`` other than 1 exits non-zero naming the ROADMAP.md item that
-will lift it (item 7, ``parallel/pool.py``).
+``run --chips C`` (grouped runs with an engine) replaces the one engine
+by an :class:`~minbft_tpu_torch.parallel.EnginePool` over the visible
+devices of ``--device`` (the one CPU device with ``--device cpu``): one
+engine per home chip, each group's checks in its home chip's queues.
+``0`` is every visible device; the pool clamps to the devices it has, and
+the replica prints the requested and built widths on stderr.  ``--chips``
+other than 1 without groups or with ``--no-batch`` exits non-zero.
 
 ``MINBFT_TRACE_DUMP=base`` turns the flight recorder on: at shutdown a
 replica writes its stage dump, its telemetry ring and
@@ -77,7 +82,6 @@ import os
 import signal
 import sys
 
-from ...api import NotPortedError
 from ..envflags import env_default
 
 
@@ -284,8 +288,10 @@ def build_parser(options: dict | None = None) -> argparse.ArgumentParser:
         "--chips",
         type=int,
         default=_opt("chips", 1, section="run"),
-        help="home chips of the multi-device engine pool: only 1 (the "
-        "default, the one engine) is ported; any other value exits",
+        help="home chips of the multi-device engine pool (grouped runs with "
+        "an engine): 1 (default) = the one engine; C > 1 = one engine per "
+        "home chip, groups placed round-robin; 0 = every visible device.  "
+        "Clamps to the visible devices",
     )
     r.add_argument(
         "--peer-idle-timeout",
@@ -604,7 +610,11 @@ def engine_report(engine) -> dict:
     launch counts (every engine of the process shares them), whether the
     process initialised CUDA (so holds a context on the card) and, on the
     card, the MiB its PyTorch allocator holds there (the CUDA context's
-    own memory is not in it)."""
+    own memory is not in it).  ``engine`` may be an
+    :class:`~minbft_tpu_torch.parallel.EnginePool`: its queues are the
+    pool's merged ones (``c{chip}:`` and ``stripe:`` names past one chip),
+    its device chip 0's, and ``chips``, ``requested_chips`` and
+    ``devices`` say how wide it was built."""
     import torch
 
     from ...ops import ed25519, hmac_sha256, p256
@@ -616,9 +626,15 @@ def engine_report(engine) -> dict:
         "K7": ed25519.ed25519_verify_kernel_packed,
         "K8": ed25519.ed25519_rb_kernel,
     }
-    reserved = (torch.cuda.memory_reserved(engine.device) / 2**20
-                if engine.device.type == "cuda" else 0.0)
+    engines = getattr(engine, "engines", (engine,))
+    cards = {e.device for e in engines if e.device.type == "cuda"}
+    reserved = sum(torch.cuda.memory_reserved(d) for d in cards) / 2**20
+    pool = {}
+    if engines[0] is not engine:
+        pool = {"chips": engine.chips, "requested_chips": engine.requested_chips,
+                "devices": [str(d) for d in engine.devices]}
     return {
+        **pool,
         "device": str(engine.device),
         "cuda_context": torch.cuda.is_initialized(),
         "cuda_reserved_mib": reserved,
@@ -653,8 +669,14 @@ async def _run_replica(args) -> int:
 
     store = KeyStore.load(args.keys)
     cfg = load_config(args.config)
-    if args.chips != 1:
-        raise NotPortedError(f"--chips {args.chips} (parallel/pool.py)", "7")
+    n_groups = args.groups if args.groups > 0 else getattr(cfg, "groups", 1)
+    grouped = n_groups > 1
+    if args.chips != 1 and (not grouped or args.no_batch):
+        raise SystemExit(
+            f"peer: --chips {args.chips} places groups on an engine pool: it "
+            "needs --groups > 1 (or a grouped config) and an engine (no "
+            "--no-batch)"
+        )
     addrs = {p.id: p.addr for p in cfg.peers}
     if args.id not in addrs:
         raise SystemExit(f"peer: replica {args.id} not in {args.config} peers[]")
@@ -669,13 +691,41 @@ async def _run_replica(args) -> int:
     # One engine for this replica, one bucket (the reference's rule for
     # its device engine); the kernels build (or load from build/torch_ext/)
     # here, before the replica serves.
-    engine = _make_engine(args, args.batch, buckets=(args.batch,))
+    engine = engine_pool = None
+    if args.chips != 1:
+        # Multi-device engine pool: one engine per home chip, groups placed
+        # round-robin, in place of the one shared engine.  The
+        # authenticators are built engine-less below and bound to their
+        # group's home-chip facade by the runtime.
+        from ...parallel import EnginePool
+
+        engine_pool = EnginePool.over(_engine_device(args), args.chips, args.batch)
+        print(
+            f"replica {args.id} engine pool: chips requested "
+            f"{engine_pool.requested_chips}, built {engine_pool.chips} on "
+            f"{', '.join(map(str, engine_pool.devices))}",
+            file=sys.stderr,
+        )
+    else:
+        engine = _make_engine(args, args.batch, buckets=(args.batch,))
+    # What served the checks: the engine, or the pool (whose merged
+    # stats and depths are an engine's surface).
+    served = engine if engine is not None else engine_pool
+    # Every engine whose dispatches the flight recorder keeps: a pool's
+    # chip engines and its striped engine, or the one engine.
+    own_engines = [
+        e for e in ((*engine_pool.engines, engine_pool.striped_engine)
+                    if engine_pool is not None else (engine,))
+        if e is not None
+    ]
 
     def make_auth():
         # One call = one authenticator instance = one fresh USIG epoch
         # (the keystore restores the sealed key per call), so construct
         # exactly as many as the runtime needs: one ungrouped, or one per
-        # group below.  Every one checks and signs through ``engine``.
+        # group below.  Every one checks and signs through ``engine``, or,
+        # with a pool, through its group's home-chip engine once the
+        # runtime binds it.
         if args.auth == "mac":
             return store.mac_replica_authenticator(args.id, engine=engine)
         return store.replica_authenticator(args.id, engine=engine)
@@ -721,8 +771,6 @@ async def _run_replica(args) -> int:
 
     state_dir = getattr(args, "state_dir", "") or state_dir_from_env()
 
-    n_groups = args.groups if args.groups > 0 else getattr(cfg, "groups", 1)
-    grouped = n_groups > 1
     if grouped:
         # Multi-group runtime: G independent group cores over this one
         # listener and peer connection set, every core's verify and sign
@@ -740,7 +788,7 @@ async def _run_replica(args) -> int:
         ledgers = [SimpleLedger() for _ in range(n_groups)]
         replica = new_group_runtime(
             args.id, cfg, [make_auth() for _ in range(n_groups)], conn, ledgers,
-            logger=ropts.logger, state_dir=state_dir or None,
+            logger=ropts.logger, engine_pool=engine_pool, state_dir=state_dir or None,
         )
     else:
         ledgers = [SimpleLedger()]
@@ -753,7 +801,7 @@ async def _run_replica(args) -> int:
     bound = await server.start(listen)
     print(
         f"replica {args.id} serving on {bound} "
-        f"(engine: {engine.device if engine is not None else 'none, host crypto'}"
+        f"(engine: {served.device if served is not None else 'none, host crypto'}"
         f"{f'; {n_groups} groups' if grouped else ''})",
         file=sys.stderr,
     )
@@ -777,8 +825,9 @@ async def _run_replica(args) -> int:
     # Engine dispatcher spans are exported by the MINBFT_TRACE_DUMP
     # shutdown dump, so recording is gated on exactly that knob.
     dump_base = os.environ.get(obs_trace.TRACE_DUMP_ENV)
-    if engine is not None and dump_base:
-        engine.enable_obs_ring()
+    if dump_base:
+        for eng in own_engines:
+            eng.enable_obs_ring()
 
     # Latency-SLO ledger (obs/slo.py): the Handlers built their own
     # BudgetLedger when the policy is enabled (MINBFT_SLO_* env or the
@@ -810,9 +859,10 @@ async def _run_replica(args) -> int:
                 )
         else:
             obs_ts.register_replica_series(sampler, replica.metrics)
-        if engine is not None:
-            # once per engine: the grouped cores share it
-            obs_ts.register_engine_series(sampler, engine)
+        if served is not None:
+            # once per engine (the grouped cores share it), or once for
+            # the pool's merged surfaces
+            obs_ts.register_engine_series(sampler, served)
         for lg in slo_ledgers:
             obs_slo.register_slo_series(sampler, lg)
 
@@ -823,11 +873,13 @@ async def _run_replica(args) -> int:
         def render() -> str:
             # Called on the server's thread: it only reads.  A grouped
             # runtime gives one family block per metric with samples
-            # labelled per group, and the shared engine's families once.
+            # labelled per group, and the shared engine's families once
+            # (a pool's merged ones, with c{chip}: queue names, and the
+            # runtime's pool adds the minbft_engine_pool_* families).
             if grouped:
                 fams = obs_prom.collect_group_runtime(
                     replica,
-                    engine=engine,
+                    engine=served,
                     replica_id=args.id,
                     timeseries=tseries,
                     slo_spool=slo_spool,
@@ -873,15 +925,15 @@ async def _run_replica(args) -> int:
         # Engine dispatcher spans + queue-wait histograms ride the
         # shutdown dump alongside the replica's stage dump; the port adds
         # the engine's report (device, per-queue counts, launches).
-        if engine is None or not dump_base:
+        if served is None or not dump_base:
             return
         import json as _json
 
         from ...obs import critpath as obs_critpath
 
-        doc = obs_critpath.engine_queue_doc(engine, ident=args.id)
-        doc["engine"] = engine_report(engine)
-        events = engine.drain_obs_events()
+        doc = obs_critpath.engine_queue_doc(served, ident=args.id)
+        doc["engine"] = engine_report(served)
+        events = [ev for eng in own_engines for ev in eng.drain_obs_events()]
         if events:
             doc["events"] = [list(e) for e in events]
         # noqa: AH102 - one-shot crash/shutdown dump; forensics cannot rely on executors
@@ -1005,8 +1057,8 @@ async def _run_replica(args) -> int:
         {"group": g, "length": lg.length, "digest": lg.state_digest().hex()}
         for g, lg in enumerate(ledgers)
     ]), file=sys.stderr, flush=True)
-    if engine is not None:
-        print(f"replica {args.id} engine {_json.dumps(engine_report(engine))}",
+    if served is not None:
+        print(f"replica {args.id} engine {_json.dumps(engine_report(served))}",
               file=sys.stderr, flush=True)
     return 0
 

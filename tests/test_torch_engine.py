@@ -125,8 +125,18 @@ def test_cuda_engine_refuses_host_signing(monkeypatch):
 
 
 def test_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        BatchVerifier(device="cpu", mesh=object())
+    """The name is kept from before the mesh was ported.  ``mesh=`` now
+    splits batches (tests/test_torch_mesh.py); with ``device=`` and a mesh
+    of more than one device it raises ValueError, and a 1-device mesh is
+    the plain engine on its device."""
+    from minbft_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="not both"):
+        BatchVerifier(device="cpu", mesh=make_mesh(["cpu", "cpu"]))
+    one = BatchVerifier(max_batch=_BUCKET, mesh=make_mesh(["cpu"]))
+    assert one.mesh.size == 1 and one.device == torch.device("cpu")
+    two = BatchVerifier(max_batch=6, buckets=(3, 6), mesh=make_mesh(["cpu", "cpu"]))
+    assert two.buckets == (4, 6) and two.mesh.size == 2
 
 
 def test_sign_queue_device_path_is_memo_free():

@@ -16,7 +16,8 @@ reference's (minbft_tpu/groups), on the CPU.
    group frames, the wedged group, the saturated group processor, the
    group labels in the trace and in ``collect_group_runtime``'s families
    (family names, types, help and samples equal to the reference
-   collector's on the same runtime), and the grouped testnet scaffold.
+   collector's on the same runtime), ``engine_pool=`` binding each group
+   to its home-chip facade, and the grouped testnet scaffold.
    The two scenarios that fail on the reference read the ledgers the
    moment the client holds f + 1 replies; their port copies wait, within
    a bound, for every correct replica to execute, then apply the
@@ -60,6 +61,7 @@ from minbft_tpu_torch.sample.authentication import (
     mac_authenticators_from_keys,
     mac_keys_from,
     new_test_authenticators,
+    new_test_mac_authenticators,
 )
 from minbft_tpu_torch.sample.authentication.authenticator import make_test_keys
 from minbft_tpu_torch.sample.config import SimpleConfiger
@@ -590,11 +592,24 @@ def test_collect_group_runtime_matches_the_reference_collector():
 
 
 def test_engine_pool_is_refused_naming_its_item():
-    auths, _ = new_test_authenticators(4, usig_kind="hmac")
-    with pytest.raises(api.NotPortedError, match="item 7"):
-        new_group_runtime(0, SimpleConfiger(n=4, f=1), [auths[0]],
-                          InProcessPeerConnector(make_testnet_stubs(4)), [SimpleLedger()],
-                          engine_pool=object())
+    """The name is kept from before the pool was ported.
+    ``GroupRuntime(engine_pool=)`` now binds each group's base
+    authenticator (and a MAC authenticator's USIG) to its home-chip
+    facade, and never replaces an engine the caller injected."""
+    from minbft_tpu_torch.parallel import EnginePool
+
+    pool = EnginePool(chips=2, devices=["cpu", "cpu"], max_batch=8)
+    mac_auths = [new_test_mac_authenticators(4, usig_kind="hmac")[0][0] for _ in range(3)]
+    injected = BatchVerifier(max_batch=8, device="cpu")
+    sig_auth = new_test_authenticators(4, usig_kind="hmac", engine=injected)[0][0]
+    rt = new_group_runtime(0, SimpleConfiger(n=4, f=1, groups=4), mac_auths + [sig_auth],
+                           InProcessPeerConnector(make_testnet_stubs(4)),
+                           [SimpleLedger() for _ in range(4)], engine_pool=pool)
+    assert rt.engine_pool is pool and pool.placement() == {0: 0, 1: 1, 2: 0, 3: 1}
+    for g, auth in enumerate(mac_auths):
+        assert auth._engine is pool.engine_for(g) and auth._inner._engine is pool.engine_for(g)
+        assert auth._engine.home is pool.engines[g % 2]
+    assert sig_auth._engine is injected
 
 
 def test_testnet_scaffold_declares_groups_and_config_layers(tmp_path):

@@ -16,7 +16,9 @@ the reference's (minbft_tpu/loadgen), on the CPU.
    crypto (``device=None``) except in the engine test, where its replicas
    share one CPU engine: every request MAC and HMAC USIG certificate is
    then one lane of the plain K6 (``report["engine"]``).
-3. ``run_local_load(chips=...)`` refuses, naming ROADMAP queue 1 item 7."""
+3. ``run_local_load(chips=...)`` gives each replica an engine pool (on
+   the CPU clamped to one device) and reports its attribution keys; with
+   host crypto or without groups it raises."""
 
 import asyncio
 import dataclasses
@@ -29,7 +31,6 @@ import pytest
 from minbft_tpu.loadgen import LoadSpec as RefLoadSpec
 from minbft_tpu.loadgen import build_schedule as ref_build_schedule
 from minbft_tpu.loadgen import replay_census as ref_replay_census
-from minbft_tpu_torch import api
 from minbft_tpu_torch.groups.router import ShardRouter
 from minbft_tpu_torch.loadgen import LoadSpec, OpenLoopGenerator, build_schedule, replay_census
 from minbft_tpu_torch.loadgen.harness import _Pending
@@ -391,11 +392,27 @@ def test_run_local_load_slo_contract_and_breach_forensics(tmp_path, monkeypatch)
 
 
 # ---------------------------------------------------------------------------
-# 3. what waits for the engine pool.
+# 3. the engine pool (chips=).
 
 
 def test_run_local_load_refuses_chips_naming_item_7():
-    spec = LoadSpec(seed=1, rate=10.0, duration_s=0.1, n_clients=2)
-    for chips in (1, 2):
-        with pytest.raises(api.NotPortedError, match="item 7"):
-            asyncio.run(run_local_load(spec, chips=chips, device=None))
+    """The name is kept from before the pool was ported.  ``chips=`` now
+    gives each replica an engine pool: on the CPU it clamps to the one
+    CPU device, and the report carries the pool's attribution keys.  With
+    host crypto (``device=None``) or without groups it raises, never
+    running without the pool."""
+    spec = LoadSpec(seed=0xC4, rate=20.0, duration_s=0.3, n_clients=8, n_groups=2)
+    rep = asyncio.run(run_local_load(spec, drain_s=_t(30), chips=2, device="cpu",
+                                     pool_util_prefix="gc"))
+    assert rep["census_ok"] and rep["timeouts"] == 0, rep
+    assert rep["cluster"]["chips"] == 1
+    assert rep["engine"]["chips"] == 1 and rep["engine"]["requested_chips"] == 2
+    assert rep["engine"]["devices"] == ["cpu"]
+    util = rep["pool_util"]
+    assert util["gc_chip0_util_lanes_useful"] > 0 and util["gc_util_lanes_useful"] > 0
+    assert util["gc_verify_mean_batch"] > 0
+    assert rep["pool_placement"] == {"0": 0, "1": 0}
+    for kw in ({"device": None}, {"device": "cpu", "spec": dataclasses.replace(spec, n_groups=1)}):
+        run_spec = kw.pop("spec", spec)
+        with pytest.raises(ValueError, match="chips=2"):
+            asyncio.run(run_local_load(run_spec, chips=2, **kw))

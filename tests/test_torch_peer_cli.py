@@ -8,14 +8,15 @@ under ``MINBFT_CHAOS_SEED`` scraped as a user would, and the consoles'
 output on a fixed exposition against the reference's), multi-group
 deployments (``run --groups`` and a grouped ``request`` on a CPU engine:
 every replica's ledgers equal per group), ``load`` (a CPU engine: exit
-code 0, the census the seed's replay), and the options whose modules are
-not ported yet (exit non-zero, naming the ROADMAP item)."""
+code 0, the census the seed's replay), and ``run --chips`` (an engine
+pool on the CPU; without groups or an engine it exits non-zero)."""
 
 import contextlib
 import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -170,14 +171,54 @@ def test_no_cuda_exits_non_zero_as_a_process(testnet):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["run", "0", "--no-batch", "--chips", "2", "--groups", "2"], "item 7"),
-    (["run", "0", "--no-batch", "--chips", "0"], "item 7"),
+    (["run", "0", "--no-batch", "--chips", "2", "--groups", "2"], "an engine"),
+    (["run", "0", "--device", "cpu", "--chips", "0"], "--groups > 1"),
 ], ids=["argv1-item 7", "argv2-item 7"])
 def test_unported_run_options_exit(argv, item, testnet):
+    """The name and case ids are kept from before ``--chips`` was ported.
+    ``--chips`` places groups on an engine pool, so without an engine
+    (``--no-batch``) or without groups it exits non-zero, saying why,
+    rather than running without the pool
+    (``test_run_chips_builds_a_pool_on_the_cpu`` runs the pool)."""
     with pytest.raises(SystemExit) as e:
         cli.main(testnet + argv)
-    assert "not supported by the port yet" in str(e.value.code)
-    assert item in str(e.value.code)
+    assert e.value.code not in (0, None)
+    assert "--chips" in str(e.value.code) and item in str(e.value.code)
+
+
+def test_run_chips_builds_a_pool_on_the_cpu(tmp_path):
+    """``run --groups 2 --chips 2 --device cpu``: the replica builds an
+    engine pool, says it asked for 2 chips and built 1 (the one CPU
+    device), serves, and at SIGTERM reports the pool's queues."""
+    from minbft_tpu_torch.utils.netports import free_base_port, wait_ports
+
+    d = str(tmp_path)
+    base = free_base_port(3)
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    for var in [v for v in env if v.startswith("PEER_")]:
+        env.pop(var)
+    peer = [sys.executable, "-m", "minbft_tpu_torch.sample.peer"]
+    assert subprocess.run(peer + ["testnet", "-n", "3", "-d", d, "--usig", "HMAC_SHA256",
+                                  "--macs", "--base-port", str(base)], env=env,
+                          capture_output=True, timeout=120).returncode == 0
+    with open(f"{d}/r0.log", "w+") as log:
+        proc = subprocess.Popen(
+            peer + ["--keys", f"{d}/keys.replica0.yaml", "--config", f"{d}/consensus.yaml",
+                    "--transport", "tcp", "--auth", "mac", "run", "0", "--groups", "2",
+                    "--chips", "2", "--device", "cpu", "--batch", "8"],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            assert wait_ports([base], timeout=60)
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+        log.seek(0)
+        text = log.read()
+    assert proc.returncode == 0, text
+    assert "replica 0 engine pool: chips requested 2, built 1 on cpu" in text
+    assert "(engine: cpu; 2 groups)" in text
+    rep = json.loads(text.split("replica 0 engine ", 2)[-1].splitlines()[0])
+    assert rep["chips"] == 1 and rep["requested_chips"] == 2 and rep["devices"] == ["cpu"]
 
 
 def test_grouped_request_pins_are_checked_against_the_config(tmp_path):
